@@ -1,0 +1,371 @@
+"""Run the PyTorch/CUDA port's encode main path once on one CUDA card.
+
+    python3 chip_smoke.py
+
+from the root of a checkout. The script needs one CUDA device, the CUDA
+toolkit (``nvcc``) and a C++ compiler; it imports nothing of JAX. Its
+phases, one line each, stop the script with a non-zero exit at the
+first failure:
+
+1. the card: ``torch.cuda.is_available()`` and the name and power limit
+   that ``nvidia-smi`` reports;
+2. the build of the kernels of ``gpujpeg_tpu_torch/csrc`` with ``nvcc``
+   for ``sm_90a``, timed;
+3. each kernel (E1 fdct_quant, E2 huffman_blocks, E3 merge_stuff) against
+   its plain torch version on the card at 8K (7680x4320, Q75, restart
+   interval 32): E1 equal except |d| = 1 where the float64 quotient lies
+   within 1e-4 of .5 (at most 1e-6 of the coefficients), E2 and E3 fed
+   the same inputs and bit-exact; with both times;
+4. ``Encoder(backend="torch", device="cuda").encode`` end to end at that
+   size with every kernel's launch count above 0, the stream decoded by
+   the port's golden decoder to within 0.1 dB PSNR of the golden
+   encoder's stream, and byte-identical to it in every restart segment
+   whose coefficients agree with the float64 golden DCT (the others
+   differ only at .5 ties); a 256x256 frame encodes to the same bytes on
+   the card and through the plain path on the CPU; first-call and
+   steady-state encode times, and the device time of E1-E3 by CUDA
+   events.
+
+The line before the last is a JSON object with every kernel's numbers;
+the last line is ``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+H8K, W8K, QUALITY = 4320, 7680, 75
+TIE_EPS = 1e-4          # |frac(q64) - .5| below which rounding may differ
+MAX_TIE_SHARE = 1e-6    # E1 kernel vs plain: share of tie differences
+PSNR_DB = 0.1
+REPLACES = "gpujpeg_tpu/ops/entropy_v2.py:955"
+
+
+def fail(msg: str) -> None:
+    print(f"FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def make_image(H: int, W: int, seed: int = 7) -> np.ndarray:
+    """The JAX package's bench frame (bench.make_image): smooth colour
+    gradients plus Gaussian noise, from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:H, 0:W]
+    img = np.stack([
+        128 + 90 * np.sin(x / 23.0) * np.cos(y / 17.0),
+        128 + 80 * np.cos(x / 31.0 + 1.0) * np.sin(y / 11.0),
+        128 + 70 * np.sin((x + y) / 41.0),
+    ], axis=-1)
+    img += rng.normal(0, 3.0, img.shape)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def card_line() -> str:
+    cmd = ["nvidia-smi", "--query-gpu=name,power.limit",
+           "--format=csv,noheader"]
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES", "").split(",")[0].strip()
+    if visible:
+        cmd += ["-i", visible]
+    r = subprocess.run(cmd, capture_output=True, text=True, timeout=60)
+    if r.returncode != 0 or not r.stdout.strip():
+        fail(f"nvidia-smi failed: {r.stderr.strip()}")
+    return r.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn()`` in ms over ``reps`` runs after one
+    warm-up, by CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def psnr(a: np.ndarray, b: np.ndarray) -> float:
+    mse = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
+    return 99.0 if mse == 0 else float(10 * np.log10(255.0 ** 2 / mse))
+
+
+def setup(gj, H: int, W: int):
+    from gpujpeg_tpu_torch.plan import make_plan
+    image = gj.ImageParameters(width=W, height=H,
+                               color_space=gj.ColorSpace.RGB,
+                               pixel_format=gj.PixelFormat.PF_444_U8_P012)
+    ri = gj.suggest_restart_interval(image, subsampled=False,
+                                     interleaved=False, pow2=True,
+                                     quality=QUALITY)
+    params = gj.Parameters(quality=QUALITY, restart_interval=ri)
+    return params, image, make_plan(params, image)
+
+
+def e1_ties(ctx, rgb, diff_mask) -> float:
+    """Largest |frac(q64) - .5| over the coefficients where E1's kernel
+    and plain version differ (q64: the float64 quotient)."""
+    from gpujpeg_tpu_torch.ops.rgbpack import rgb_to_planes
+    from gpujpeg_tpu_torch.tables import dct_zigzag_operator
+    rows, cols = torch.nonzero(diff_mask, as_tuple=True)
+    if rows.numel() == 0:
+        return 0.0
+    vals = ctx.xf.tolist()
+    consts = (None, None) if vals[12] else (vals[:9], vals[9:12])
+    planes = rgb_to_planes(rgb, consts)
+    _, H, W = planes.shape
+    blocks = (planes.reshape(3, H // 8, 8, W // 8, 8).permute(0, 1, 3, 2, 4)
+              .reshape(-1, 64))                   # component-major = scan
+    D64, bias64 = dct_zigzag_operator()
+    D = torch.as_tensor(D64, device=rgb.device)
+    bias = torch.as_tensor(bias64, device=rgb.device)
+    y = (blocks[rows].double() @ D - bias).gather(1, cols[:, None])[:, 0]
+    nblk = blocks.shape[0] // 3
+    q = ctx.qdiv.double()[rows // nblk, cols]
+    yq = y / q
+    return float((yq - torch.floor(yq) - 0.5).abs().max())
+
+
+def phase_kernels(ctx, rgb) -> list[dict]:
+    """Phase 3: each kernel against its plain version on the card."""
+    from gpujpeg_tpu_torch.ops import dct, entropy
+    t, g = ctx.tables, ctx.geo
+    e1 = (rgb, t.dct, t.bias, ctx.qdiv, ctx.xf, ctx.interleaved)
+    coeff = dct.fdct_quant(*e1)
+    coeff_p = dct.fdct_quant_plain(*e1)
+    d = (coeff - coeff_p).abs()
+    n_diff = int((d != 0).sum())
+    err1 = int(d.max())
+    tie_dist = e1_ties(ctx, rgb, d != 0)
+    print(f"phase 3: E1 fdct_quant {n_diff} of {coeff.numel()} coefficients "
+          f"differ from the plain version, max |d| {err1}, farthest "
+          f"from a .5 tie {tie_dist:.3g}", flush=True)
+    if err1 > 1 or n_diff > MAX_TIE_SHARE * coeff.numel() \
+            or tie_dist > TIE_EPS:
+        fail("E1 disagrees with its plain version beyond .5 ties")
+
+    e2 = (coeff, g.dc_pred, g.block_cls, t.ac512, t.dc64)
+    words, bits = entropy.huffman_blocks(*e2)
+    words_p, bits_p = entropy.huffman_blocks_plain(*e2)
+    used = (torch.arange(words.shape[1], device=words.device)[None, :]
+            < ((bits + 31) // 32)[:, None])
+    w_bad = int(((words != words_p) & used).sum())
+    b_bad = int((bits != bits_p).sum())
+    print(f"phase 3: E2 huffman_blocks {b_bad} bit lengths and {w_bad} "
+          f"string words differ of {bits.numel()} blocks", flush=True)
+    if w_bad or b_bad:
+        fail("E2 disagrees with its plain version")
+
+    e3 = (words, bits, g.seg_start, g.seg_count, g.rst, g.has_rst, g.cap_out)
+    out, out_len, seg_bits, n_ff = entropy.merge_stuff(*e3)
+    out_p, out_len_p, seg_bits_p, n_ff_p = entropy.merge_stuff_plain(*e3)
+    meta_bad = int(((out_len != out_len_p) | (seg_bits != seg_bits_p)
+                    | (n_ff != n_ff_p)).sum())
+    valid = (torch.arange(g.cap_out, device=out.device)[None, :]
+             < out_len_p[:, None])
+    byte_bad = int(((out != out_p) & valid).sum())
+    print(f"phase 3: E3 merge_stuff {meta_bad} segment lengths and "
+          f"{byte_bad} bytes differ of {out_len.numel()} segments, "
+          f"{int(out_len.sum())} bytes", flush=True)
+    if meta_bad or byte_bad:
+        fail("E3 disagrees with its plain version")
+
+    rows = []
+    for name, src, kern, plain, args, errv in (
+            ("fdct_quant", "fdct_quant.cu", dct.fdct_quant,
+             dct.fdct_quant_plain, e1, err1),
+            ("huffman_blocks", "huffman_blocks.cu", entropy.huffman_blocks,
+             entropy.huffman_blocks_plain, e2, 0),
+            ("merge_stuff", "merge_stuff.cu", entropy.merge_stuff,
+             entropy.merge_stuff_plain, e3, 0)):
+        ms = cuda_ms(lambda: kern(*args), 10)
+        plain_ms = cuda_ms(lambda: plain(*args), 2)
+        print(f"phase 3: {name} {ms:.4f} ms, plain {plain_ms:.4f} ms",
+              flush=True)
+        rows.append({"name": name, "route": "cuda",
+                     "source": f"gpujpeg_tpu_torch/csrc/{src}",
+                     "replaces": REPLACES, "launches": 0,
+                     "max_abs_err": errv, "ms": ms, "plain_ms": plain_ms})
+    return rows
+
+
+def stage_ms(enc, ctx, raw, quant_zz, huff) -> np.ndarray:
+    """Host-clock ms of the encode's stages, each ended by a sync."""
+    from gpujpeg_tpu_torch.ops.pipeline import _split_scan_bodies, upload_rgb
+
+    def sync():
+        if ctx.device.type == "cuda":
+            torch.cuda.synchronize(ctx.device)
+
+    plan = ctx.plan
+    t = [time.perf_counter()]
+    rgb = upload_rgb(raw, plan, ctx.device)
+    sync()
+    t.append(time.perf_counter())
+    out, out_len, _, _ = ctx.run(rgb)
+    sync()
+    t.append(time.perf_counter())
+    bodies, sizes = _split_scan_bodies(plan, ctx, out, out_len.cpu().numpy())
+    t.append(time.perf_counter())
+    enc._assemble(plan, quant_zz, huff, bodies, sizes)
+    t.append(time.perf_counter())
+    return np.diff(t) * 1e3
+
+
+def segment_bytes(info) -> list[bytes]:
+    return [bytes(s.data[lo:hi]) for s in info.scans
+            for lo, hi in s.segments]
+
+
+def phase_encode(gj, img, params, image, plan, card: str,
+                 device: str = "cuda") -> dict:
+    """Phase 4: the public encode end to end, checked against golden."""
+    from gpujpeg_tpu_torch.ops import dct, entropy
+    from gpujpeg_tpu_torch.ops.blocks import plane_to_blocks
+    from gpujpeg_tpu_torch.ops.preprocess import preprocess
+    from gpujpeg_tpu_torch.stream.reader import read_image
+    from gpujpeg_tpu_torch.tables import fdct_quant_matrix
+
+    kernels = (dct.fdct_quant, entropy.huffman_blocks, entropy.merge_stuff)
+    enc = gj.Encoder(backend="torch", device=device)
+    raw = img.reshape(-1)
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    data = enc.encode(raw, params, image)
+    first_ms = (time.perf_counter() - t0) * 1e3
+    launches = {k.__name__: k.launches for k in kernels}
+    if min(launches.values()) < 1:
+        fail(f"a kernel of the main path did not launch: {launches}")
+
+    steady = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        again = enc.encode(raw, params, image)
+        steady.append((time.perf_counter() - t0) * 1e3)
+    if again != data:
+        fail("two encodes of one frame differ")
+    ctx = next(iter(enc._contexts.values()))
+    quant_zz, huff = enc._tables(params)
+    stages = np.median([stage_ms(enc, ctx, raw, quant_zz, huff)
+                        for _ in range(3)], axis=0)
+    rgb = torch.from_numpy(img).to(device)
+    device_ms = cuda_ms(lambda: ctx.run(rgb), 10)
+
+    gold = gj.Encoder(backend="golden").encode(raw, params, image)
+    dec = gj.Decoder(backend="golden")
+    out_t, _ = dec.decode(data)
+    out_g, _ = dec.decode(gold)
+    p_t, p_g = psnr(out_t.reshape(img.shape), img), \
+        psnr(out_g.reshape(img.shape), img)
+
+    # coefficients: the kernel's against the float64 golden DCT
+    planes = preprocess(raw, image, plan, np)
+    coeff_g, y64 = [], []
+    for c in plan.components:
+        M, b = fdct_quant_matrix(quant_zz[c.quant_table_index])
+        y = plane_to_blocks(planes[c.index], np).astype(np.float64) @ M - b
+        y64.append(y)
+        coeff_g.append(np.rint(y).astype(np.int32))
+    coeff_g = np.concatenate(coeff_g)[plan.block_plane_idx]
+    y64 = np.concatenate(y64)[plan.block_plane_idx]
+    t = ctx.tables
+    coeff_k = dct.fdct_quant(rgb, t.dct, t.bias, ctx.qdiv, ctx.xf,
+                             ctx.interleaved).cpu().numpy()
+    diff = coeff_k != coeff_g
+    if diff.any():
+        far = np.abs(np.abs(y64[diff] - np.floor(y64[diff])) - 0.5).max()
+        if np.abs(coeff_k - coeff_g).max() > 1 or far > TIE_EPS:
+            fail("kernel coefficients differ from golden beyond .5 ties")
+    tie_segs = set(plan.block_segment[np.nonzero(diff.any(axis=1))[0]]
+                   .tolist())
+    seg_t, seg_g = segment_bytes(read_image(data)), \
+        segment_bytes(read_image(gold))
+    if len(seg_t) != len(seg_g) or len(seg_t) != plan.n_segments:
+        fail("segment counts differ from the golden stream")
+    bad = [s for s in range(plan.n_segments)
+           if s not in tie_segs and seg_t[s] != seg_g[s]]
+    print(f"phase 4: encode {image.width}x{image.height} Q{params.quality} ri="
+          f"{params.restart_interval}: {len(data)} bytes, launches "
+          f"{launches}; PSNR {p_t:.4f} dB vs golden {p_g:.4f} dB; "
+          f"{int(diff.sum())} coefficients at .5 ties in {len(tie_segs)} "
+          f"segments; {len(bad)} of the other "
+          f"{plan.n_segments - len(tie_segs)} segments differ from golden",
+          flush=True)
+    if bad:
+        fail(f"segments {bad[:10]} differ from the golden stream")
+    if abs(p_t - p_g) > PSNR_DB:
+        fail("PSNR differs from the golden stream's by more than 0.1 dB")
+
+    small = make_image(256, 256)
+    sp, si, _ = setup(gj, 256, 256)
+    s_cuda = enc.encode(small.reshape(-1), sp, si)
+    s_cpu = gj.Encoder(backend="torch", device="cpu").encode(
+        small.reshape(-1), sp, si)
+    if s_cuda != s_cpu:
+        fail("256x256 stream on the card differs from the CPU plain path")
+
+    print(f"phase 4: {card}: encode first call {first_ms:.3f} ms, steady "
+          f"{float(np.median(steady)):.3f} ms (median of 5, host clock, "
+          f"upload and stream assembly included); E1-E3 device "
+          f"{device_ms:.4f} ms (CUDA events); 256x256 stream equals the "
+          f"CPU plain path's", flush=True)
+    print(f"phase 4: {card}: encode stages (host clock, median of 3): "
+          f"upload {stages[0]:.3f} ms, E1-E3 {stages[1]:.3f} ms, length "
+          f"sync + compaction + D2H {stages[2]:.3f} ms, stream assembly "
+          f"{stages[3]:.3f} ms", flush=True)
+    return launches
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a "
+             "CUDA device")
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import gpujpeg_tpu_torch as gj
+    from gpujpeg_tpu_torch import _build
+    from gpujpeg_tpu_torch.ops.pipeline import _EncContext, upload_rgb
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    print(f"phase 1: {card}; torch {torch.__version__} cuda "
+          f"{torch.version.cuda}; {torch.cuda.get_device_name(0)}",
+          flush=True)
+    print(card, flush=True)
+
+    t0 = time.perf_counter()
+    _build.load_kernels()
+    print(f"phase 2: kernels built and loaded in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    img = make_image(H8K, W8K)
+    params, image, plan = setup(gj, H8K, W8K)
+    if params.restart_interval != 32:
+        fail(f"restart interval {params.restart_interval}, expected 32")
+    quant_zz, huff = gj.Encoder(backend="golden")._tables(params)
+    ctx = _EncContext(plan, quant_zz, huff, torch.device("cuda"))
+    rgb = upload_rgb(img, plan, ctx.device)
+    rows = phase_kernels(ctx, rgb)
+    del ctx, rgb
+    torch.cuda.empty_cache()
+
+    launches = phase_encode(gj, img, params, image, plan, card)
+    for r in rows:
+        r["launches"] = launches[r["name"]]
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

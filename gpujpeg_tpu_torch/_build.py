@@ -1,0 +1,92 @@
+"""Build and load the CUDA kernels of ``csrc/``.
+
+All ``csrc/*.cu`` sources compile with ``nvcc`` for ``sm_90a`` into one
+shared library with a plain C interface, which is loaded with ctypes.
+The library is named by a digest of the sources and kept in
+:func:`runtime.kernel_build_dir`, so a second process reuses it. The
+first call of :func:`load_kernels` in a checkout builds it (a few
+seconds per source file); nothing is compiled at import.
+
+Every C entry launches on the stream it is given and returns
+``cudaGetLastError()`` of its launch; the wrappers in ``ops/`` raise on a
+non-zero return.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+
+from .runtime import kernel_build_dir, verify_private_dir
+
+CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+#: C entry -> argument types (pointers and the stream as c_void_p)
+SIGNATURES = {
+    "gj_fdct_quant": [_P, _I, _I, _P, _P, _P, _P, _I, _P, _P],
+    "gj_huffman_blocks": [_P, _I, _P, _P, _P, _P, _I, _P, _P, _P],
+    "gj_merge_stuff": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P,
+                       _P],
+}
+
+
+def _sources() -> list[str]:
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("NVCC"), shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit (set NVCC or CUDA_HOME)")
+
+
+def library_path() -> str:
+    """Build the kernel library if needed; return its path."""
+    srcs = _sources()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for s in srcs:
+        with open(s, "rb") as f:
+            h.update(f.read())
+    out_dir = kernel_build_dir()
+    if not verify_private_dir(out_dir):
+        raise RuntimeError(f"kernel build dir {out_dir} is not private")
+    so = os.path.join(out_dir, f"gj_kernels_{h.hexdigest()[:16]}.so")
+    if os.path.exists(so):
+        return so
+    tmp = f"{so}.tmp{os.getpid()}"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs]
+    r = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    if r.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr}")
+    os.replace(tmp, so)
+    return so
+
+
+@functools.lru_cache(maxsize=1)
+def load_kernels() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use)."""
+    lib = ctypes.CDLL(library_path())
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check_launch(name: str, err: int) -> None:
+    """Raise if a C entry reported a launch error."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")

@@ -1,0 +1,172 @@
+"""Decoder orchestrator — the analog of ``gpujpeg_decoder_decode``
+(reference: src/gpujpeg_decoder.c:206-402).
+
+Pipeline: parse -> Huffman decode -> dequant+IDCT -> postprocess -> raw
+output, all on the host: the native C++ segment decoder (NumPy golden
+decoder without a compiler), float64 IDCT and the NumPy postprocess. This
+is the port's ``golden`` backend; the device decode is not ported yet.
+"""
+from __future__ import annotations
+
+import time
+
+import numpy as np
+
+from ..ops import golden
+from ..ops.blocks import blocks_to_plane
+from ..ops.preprocess import postprocess
+from ..params import ImageParameters, Parameters
+from ..plan import make_plan
+from ..stream import reader as stream_reader
+from ..types import ColorSpace, PixelFormat, SamplingFactor
+
+BACKENDS = ("golden",)
+
+
+def huffman_maps(info) -> tuple[list, list]:
+    """Per-component DC/AC Huffman tables from the parsed scans.
+
+    Raises :class:`JpegParseError` for scans referencing undefined
+    tables or components left without any scan — corrupt streams must
+    surface as parse errors, not internal KeyError/None crashes
+    (reference rejects unknown table mappings in its SOS parser,
+    gpujpeg_reader.c:1136-1252)."""
+    from ..stream.reader import JpegParseError
+    dc: list = [None] * info.comp_count
+    ac: list = [None] * info.comp_count
+    for scan in info.scans:
+        for sc in scan.components:
+            if not (0 <= sc.comp_index < info.comp_count):
+                raise JpegParseError(
+                    f"scan references component {sc.comp_index} "
+                    f"of {info.comp_count}")
+            try:
+                dc[sc.comp_index] = info.huffman_tables[(0, sc.dc_table)]
+                ac[sc.comp_index] = info.huffman_tables[(1, sc.ac_table)]
+            except KeyError:
+                raise JpegParseError(
+                    f"scan references undefined Huffman table "
+                    f"(dc={sc.dc_table}, ac={sc.ac_table})") from None
+    for c in range(info.comp_count):
+        if dc[c] is None or ac[c] is None:
+            raise JpegParseError(f"component {c} has no scan")
+    return dc, ac
+
+
+class DecoderStats:
+    def __init__(self) -> None:
+        self.duration_stream = 0.0
+        self.duration_huffman_coder = 0.0
+        self.duration_dct_quantization = 0.0
+        self.duration_postprocessor = 0.0
+
+    def asdict(self) -> dict[str, float]:
+        return dict(self.__dict__)
+
+
+class Decoder:
+    def __init__(self, backend: str = "golden"):
+        if backend not in BACKENDS:
+            raise ValueError(f"backend must be one of {BACKENDS}, got "
+                             f"{backend!r} (the device decode is not "
+                             f"ported yet)")
+        self.backend = backend
+        self.stats = DecoderStats()
+        self.output_format: PixelFormat | None = None
+        self.output_color_space: ColorSpace | None = None
+
+    def set_output_format(self, color_space: ColorSpace,
+                          pixel_format: PixelFormat) -> None:
+        """(reference: gpujpeg_decoder_set_output_format,
+        gpujpeg_decoder.c:410-417)"""
+        self.output_color_space = ColorSpace(color_space)
+        self.output_format = PixelFormat(pixel_format)
+
+    # ------------------------------------------------------------------
+    def decode(self, data: bytes) -> tuple[np.ndarray, ImageParameters]:
+        t0 = time.perf_counter()
+        info = stream_reader.read_image(data)
+        self.stats.duration_stream = (time.perf_counter() - t0) * 1e3
+
+        plan, scan_data, segments_by_scan = self._plan_from_info(info)
+        dc_by_comp, ac_by_comp = huffman_maps(info)
+
+        out_image = ImageParameters(
+            width=info.width, height=info.height,
+            color_space=(self.output_color_space
+                         if self.output_color_space is not None
+                         else ColorSpace.RGB),
+            # explicit None check: PixelFormat.U8 == 0 is falsy, so an
+            # `or` would silently ignore a requested grayscale output
+            pixel_format=(self.output_format
+                          if self.output_format is not None
+                          else info.deduce_pixel_format()),
+        )
+
+        t1 = time.perf_counter()
+        from ..native import decode_segments_native
+        coeff_scan = decode_segments_native(
+            plan, scan_data, segments_by_scan, dc_by_comp, ac_by_comp)
+        if coeff_scan is None:  # no compiler available
+            coeff_scan = golden.decode_segments(
+                plan, scan_data, segments_by_scan, dc_by_comp, ac_by_comp)
+        t2 = time.perf_counter()
+        coeff_plane = np.empty_like(coeff_scan)
+        coeff_plane[plan.block_plane_idx] = coeff_scan
+        planes = []
+        pos = 0
+        for c in plan.components:
+            qt = info.quant_tables[info.components[c.index].quant_table_index]
+            blocks = golden.dequant_idct(coeff_plane[pos:pos + c.block_count], qt)
+            planes.append(blocks_to_plane(blocks, c.data_height, c.data_width, np))
+            pos += c.block_count
+        t3 = time.perf_counter()
+        raw = postprocess(planes, out_image, plan, np)
+        t4 = time.perf_counter()
+        self.stats.duration_huffman_coder = (t2 - t1) * 1e3
+        self.stats.duration_dct_quantization = (t3 - t2) * 1e3
+        self.stats.duration_postprocessor = (t4 - t3) * 1e3
+        return np.asarray(raw), out_image
+
+    # ------------------------------------------------------------------
+    def _plan_from_info(self, info: stream_reader.JpegInfo):
+        """Reconstruct the coder plan from parsed stream info
+        (analog of gpujpeg_decoder_init, gpujpeg_decoder.c:158-202)."""
+        sampling = tuple(c.sampling for c in info.components)
+        sampling = sampling + (SamplingFactor(1, 1),) * (4 - len(sampling))
+        params = Parameters(
+            quality=75,  # unknown from stream; tables come from DQT anyway
+            restart_interval=info.restart_interval,
+            interleaved=info.interleaved,
+            color_space_internal=info.color_space,
+            sampling_factor=sampling,
+        )
+        image = ImageParameters(
+            width=info.width, height=info.height,
+            color_space=ColorSpace.RGB,
+            pixel_format=info.deduce_pixel_format(),
+        )
+        plan = make_plan(params, image)
+
+        # Map stream scans onto plan scans (non-interleaved plan scans are
+        # ordered by component index; foreign streams may order differently).
+        scan_data = [np.zeros(0, np.uint8)] * len(plan.scans)
+        # per scan: (n, 2) int64 [lo, hi) ranges (ScanInfo.segments)
+        segments_by_scan = [np.zeros((0, 2), np.int64) for _ in plan.scans]
+        if info.interleaved:
+            if info.scans:
+                scan_data[0] = info.scans[0].data
+                segments_by_scan[0] = info.scans[0].segments
+        else:
+            for scan in info.scans:
+                comp = scan.components[0].comp_index
+                scan_data[comp] = scan.data
+                segments_by_scan[comp] = scan.segments
+
+        # When the stream has no restart markers, the whole scan is one
+        # segment (reference: gpujpeg_common.c:640-650).
+        for i, segs in enumerate(segments_by_scan):
+            if len(segs) == 0 and scan_data[i].size:
+                segments_by_scan[i] = np.array(
+                    [(0, int(scan_data[i].size))], np.int64)
+        return plan, scan_data, segments_by_scan

@@ -1,0 +1,167 @@
+"""Encoder orchestrator — the analog of ``gpujpeg_encoder_encode``
+(reference: src/gpujpeg_encoder.c:287-548).
+
+Pipeline: plan -> preprocess -> DCT+quant -> segment-parallel Huffman ->
+stream assembly. The compute stages run either on the host golden path
+(NumPy and the native C++ coder; backend ``"golden"``) or on a torch
+device (backend ``"torch"``): hand-written CUDA kernels on ``"cuda"``,
+their plain torch versions on ``"cpu"``.
+"""
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from ..ops import golden
+from ..ops.blocks import plane_to_blocks
+from ..ops.preprocess import preprocess
+from ..params import ImageParameters, Parameters
+from ..plan import CoderPlan, make_plan
+from ..stream.writer import HeaderType, JpegWriter
+from ..tables import default_huffman_table, quant_table_zz
+from ..types import ComponentType, HuffmanType
+
+BACKENDS = ("torch", "golden")
+
+
+class EncoderStats:
+    """Per-stage wall-clock durations in ms
+    (analog of struct gpujpeg_duration_stats, gpujpeg_common.h:315-325)."""
+
+    def __init__(self) -> None:
+        self.duration_preprocessor = 0.0
+        self.duration_dct_quantization = 0.0
+        self.duration_huffman_coder = 0.0
+        self.duration_stream = 0.0
+        self.duration_in_gpu = 0.0   # upload + kernels + length sync
+
+    def asdict(self) -> dict[str, float]:
+        return dict(self.__dict__)
+
+
+class Encoder:
+    """Reusable encoder. Holds table state and, per (params, image), the
+    device operands of the torch backend (the reference re-uses its coder
+    the same way, gpujpeg_encoder.c:300-315).
+
+    ``device`` is where the torch backend runs. ``"cuda"`` needs a CUDA
+    device and raises without one; ``"cpu"`` runs the kernels' plain
+    torch versions. The golden backend ignores it."""
+
+    def __init__(self, backend: str = "torch", device="cuda",
+                 header_type: HeaderType = HeaderType.DEFAULT):
+        if backend not in BACKENDS:
+            raise ValueError(f"backend must be one of {BACKENDS}, "
+                             f"got {backend!r}")
+        self.backend = backend
+        self.device = torch.device(device)
+        if backend == "torch":
+            if self.device.type == "cuda" and not torch.cuda.is_available():
+                raise RuntimeError("device 'cuda' requested but no CUDA "
+                                   "device is available")
+            if self.device.type not in ("cuda", "cpu"):
+                raise ValueError(f"unsupported device {self.device}")
+        self.header_type = header_type
+        self.stats = EncoderStats()
+        self._contexts: dict = {}
+
+    # ------------------------------------------------------------------
+    def _tables(self, params: Parameters):
+        quant_zz = {
+            0: quant_table_zz(ComponentType.LUMINANCE, params.quality),
+            1: quant_table_zz(ComponentType.CHROMINANCE, params.quality),
+        }
+        huff = {
+            (ct, ht): default_huffman_table(ct, ht)
+            for ct in (ComponentType.LUMINANCE, ComponentType.CHROMINANCE)
+            for ht in (HuffmanType.DC, HuffmanType.AC)
+        }
+        return quant_zz, huff
+
+    def encode(self, raw, params: Parameters, image: ImageParameters) -> bytes:
+        """Encode one frame (raw bytes or a NumPy array) to a JPEG byte
+        stream."""
+        plan = make_plan(params, image)
+        quant_zz, huff = self._tables(params)
+
+        # restart_interval == 0 means one segment per whole scan: there is
+        # no segment parallelism, so the host Huffman coder encodes it,
+        # exactly like the reference (gpujpeg_encoder.c:437-446)
+        if self.backend == "torch" and params.restart_interval > 0:
+            from ..ops.pipeline import encode_segments_device
+            result = encode_segments_device(self, raw, plan, quant_zz, huff)
+        else:
+            seg_bytes = self._encode_segments_golden(raw, plan, quant_zz, huff)
+            result = self._to_scan_bodies(plan, seg_bytes)
+        scan_bodies, seg_sizes_by_scan = result
+
+        t0 = time.perf_counter()
+        out = self._assemble(plan, quant_zz, huff, scan_bodies, seg_sizes_by_scan)
+        self.stats.duration_stream = (time.perf_counter() - t0) * 1e3
+        return out
+
+    _RST = tuple(bytes((0xFF, 0xD0 + i)) for i in range(8))
+
+    @staticmethod
+    def _to_scan_bodies(plan: CoderPlan, seg_bytes: list[bytes]):
+        """Join per-segment bytes into per-scan bodies with RST markers
+        (reference stream formatter: gpujpeg_encoder.c:479-537)."""
+        scan_bodies, seg_sizes_by_scan = [], []
+        seg = 0
+        for scan in plan.scans:
+            n = scan.segment_count
+            chunk = seg_bytes[seg:seg + n]
+            seg += n
+            sizes = np.fromiter(map(len, chunk), np.int64, n)
+            sizes[:-1] += 2
+            parts = []
+            for i, data in enumerate(chunk):
+                parts.append(data)
+                if i != n - 1:
+                    parts.append(Encoder._RST[i & 7])
+            scan_bodies.append(b"".join(parts))
+            seg_sizes_by_scan.append(sizes)
+        return scan_bodies, seg_sizes_by_scan
+
+    # ------------------------------------------------------------------
+    def _encode_segments_golden(self, raw, plan: CoderPlan, quant_zz, huff):
+        t0 = time.perf_counter()
+        planes = preprocess(raw, plan.image, plan, np)
+        t1 = time.perf_counter()
+        coeff_plane = np.concatenate([
+            golden.fdct_quant(plane_to_blocks(planes[c.index], np),
+                              quant_zz[c.quant_table_index])
+            for c in plan.components
+        ])
+        coeff_scan = coeff_plane[plan.block_plane_idx]
+        t2 = time.perf_counter()
+        dc_by_comp = [huff[(c.comp_type, HuffmanType.DC)] for c in plan.components]
+        ac_by_comp = [huff[(c.comp_type, HuffmanType.AC)] for c in plan.components]
+        from ..native import encode_segments_native
+        seg_bytes = encode_segments_native(plan, coeff_scan, dc_by_comp, ac_by_comp)
+        if seg_bytes is None:  # no compiler available
+            seg_bytes = golden.encode_segments(plan, coeff_scan, dc_by_comp, ac_by_comp)
+        t3 = time.perf_counter()
+        self.stats.duration_preprocessor = (t1 - t0) * 1e3
+        self.stats.duration_dct_quantization = (t2 - t1) * 1e3
+        self.stats.duration_huffman_coder = (t3 - t2) * 1e3
+        return seg_bytes
+
+    # ------------------------------------------------------------------
+    def _assemble(self, plan: CoderPlan, quant_zz, huff, scan_bodies,
+                  seg_sizes_by_scan) -> bytes:
+        """Final stream formatting (reference: gpujpeg_encoder.c:479-537).
+        Scan bodies arrive with RST markers already in place (inserted on
+        device, or by :meth:`_to_scan_bodies` on the golden path)."""
+        w = JpegWriter()
+        w.write_header(plan, quant_zz, huff, self.header_type)
+        for scan in plan.scans:
+            w.write_scan_header(plan, scan.index)
+            w.emit_bytes(scan_bodies[scan.index])
+            sizes = seg_sizes_by_scan[scan.index]
+            offsets = np.concatenate([[0], np.cumsum(sizes)])
+            w.patch_segment_info(offsets)
+        w.write_eoi()
+        return w.tobytes()

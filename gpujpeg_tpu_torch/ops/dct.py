@@ -1,0 +1,90 @@
+"""E1: colour transform + blockify + DCT + quantisation of interleaved RGB.
+
+:func:`fdct_quant` is the wrapper of the hand-written CUDA kernel
+``csrc/fdct_quant.cu`` (it replaces stages 1-2 of the JAX reference's
+``entropy_v2.encode_dct_fused_full``, K1, and the XLA words front end
+before it). :func:`fdct_quant_plain` is its plain torch version; the
+wrapper takes it only for tensors on the CPU.
+
+Both compute ``rint((x @ D - bias) / q)`` in float32 with
+``D, bias = tables.dct_zigzag_operator()`` and ``q = max(quant, 1)``, the
+arithmetic of the reference's ``_stage1_dct_tile``. Division is IEEE
+round-to-nearest and rounding is half-to-even. The two sum the 64 terms
+in different orders, so a quotient within rounding distance of .5 can
+differ by one between them (and between either and the JAX package).
+"""
+from __future__ import annotations
+
+import torch
+
+from .. import _build
+from .rgbpack import rgb_to_planes
+
+
+def _check(rgb, dct, bias, qdiv, xf):
+    if rgb.dtype != torch.uint8 or rgb.dim() != 3 or rgb.shape[2] != 3:
+        raise ValueError(f"rgb must be (H, W, 3) uint8, got "
+                         f"{tuple(rgb.shape)} {rgb.dtype}")
+    H, W, _ = rgb.shape
+    if H % 8 or W % 8 or H == 0 or W == 0:
+        raise ValueError(f"image {W}x{H} is not a whole number of blocks")
+    for name, t, shape, dtype in (("dct", dct, (64, 64), torch.float32),
+                                  ("bias", bias, (64,), torch.float32),
+                                  ("qdiv", qdiv, (3, 64), torch.float32),
+                                  ("xf", xf, (13,), torch.int32)):
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"{name} must be {shape} {dtype}, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+    for t in (rgb, dct, bias, qdiv, xf):
+        if t.device != rgb.device:
+            raise ValueError("all operands must be on one device")
+        if not t.is_contiguous():
+            raise ValueError("operands must be contiguous")
+
+
+def fdct_quant(rgb: torch.Tensor, dct: torch.Tensor, bias: torch.Tensor,
+               qdiv: torch.Tensor, xf: torch.Tensor,
+               interleaved: bool) -> torch.Tensor:
+    """(H, W, 3) uint8 RGB -> (3*H/8*W/8, 64) int32 zig-zag coefficients
+    in scan order (component-major, or Y/Cb/Cr per block position when
+    ``interleaved``). ``qdiv`` holds each component's divisor row, ``xf``
+    the transform constants (``rgbpack.transform_consts_tensor``)."""
+    _check(rgb, dct, bias, qdiv, xf)
+    if rgb.device.type == "cpu":
+        return fdct_quant_plain(rgb, dct, bias, qdiv, xf, interleaved)
+    if rgb.device.type != "cuda":
+        raise ValueError(f"unsupported device {rgb.device}")
+    H, W, _ = rgb.shape
+    out = torch.empty((3 * (H // 8) * (W // 8), 64), dtype=torch.int32,
+                      device=rgb.device)
+    lib = _build.load_kernels()
+    err = lib.gj_fdct_quant(
+        rgb.data_ptr(), H, W, dct.data_ptr(), bias.data_ptr(),
+        qdiv.data_ptr(), xf.data_ptr(), int(bool(interleaved)),
+        out.data_ptr(), torch.cuda.current_stream(rgb.device).cuda_stream)
+    _build.check_launch("gj_fdct_quant", err)
+    fdct_quant.launches += 1
+    return out
+
+
+fdct_quant.launches = 0
+
+
+def fdct_quant_plain(rgb: torch.Tensor, dct: torch.Tensor, bias: torch.Tensor,
+                     qdiv: torch.Tensor, xf: torch.Tensor,
+                     interleaved: bool) -> torch.Tensor:
+    """Plain torch version of :func:`fdct_quant` (a float32 matmul; on a
+    CUDA tensor the caller keeps TF32 off)."""
+    vals = xf.tolist()
+    consts = (None, None) if vals[12] else (vals[:9], vals[9:12])
+    planes = rgb_to_planes(rgb, consts)                     # (3, H, W)
+    _, H, W = planes.shape
+    blocks = (planes.reshape(3, H // 8, 8, W // 8, 8)
+              .permute(0, 1, 3, 2, 4)
+              .reshape(3, -1, 64)
+              .to(torch.float32))
+    y = torch.matmul(blocks, dct) - bias
+    coeff = torch.round(y / qdiv[:, None, :]).to(torch.int32)
+    if interleaved:
+        coeff = coeff.permute(1, 0, 2)
+    return coeff.reshape(-1, 64).contiguous()

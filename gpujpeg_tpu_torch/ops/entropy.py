@@ -1,0 +1,368 @@
+"""Segment-parallel Huffman coding of the device encode: E2 and E3.
+
+Counterpart of the JAX reference's ``gpujpeg_tpu/ops/entropy_v2.py`` on
+the main path. There one Pallas kernel (K1, ``encode_dct_fused_full``)
+does DC prediction, symbol synthesis and code lookup, per-block bit
+strings, a lane-packed tree merge of each segment, byte stuffing and RST
+append in VMEM tiles. The tree merge, lane packing and window matmuls
+answered Mosaic's limits; on the card two plain kernels do the same
+work:
+
+* **E2** :func:`huffman_blocks` (``csrc/huffman_blocks.cu``): one thread
+  per block writes the block's bit string into a scratch row of one
+  worst-case capacity (:data:`BLOCK_CAP_WORDS`) and its bit length.
+* **E3** :func:`merge_stuff` (``csrc/merge_stuff.cu``): one thread per
+  segment concatenates its blocks' strings, pads with 1-bits, stuffs
+  0xFF bytes and appends the RST marker.
+
+Capacities are worst-case, so nothing overflows and the reference's
+tier-1/tier-2 budgets and overflow retry have no counterpart here. The
+output keeps the reference's ``(out, out_len, seg_bits, n_ff)`` contract
+that compaction reads. Each wrapper takes its plain torch version
+(:func:`huffman_blocks_plain`, :func:`merge_stuff_plain`) only for
+tensors on the CPU.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .. import _build
+from ..plan import CoderPlan
+from ..tables import HuffmanTable
+from ..types import ComponentType, HuffmanType
+from .huffman_encode import build_enc_geometry
+
+#: worst-case bytes of one block's bit string: 64 chunks of at most 27
+#: bits (16-bit code + 11 value bits) is 216 bytes, rounded up to whole
+#: 32-byte sectors
+BLOCK_CAP_BYTES = 224
+BLOCK_CAP_WORDS = BLOCK_CAP_BYTES // 4
+#: blocks per step of the plain E2 (bounds its int64 temporaries)
+PLAIN_CHUNK_BLOCKS = 1 << 16
+
+
+# ---------------------------------------------------------------------------
+# Tables: packed (code<<5 | len) entries
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class PackedTables:
+    ac512: np.ndarray   # (512,) int32: [cls*256 + sym] -> code<<5|len
+    dc64: np.ndarray    # (64,)  int32: [cls*32 + cat]  -> code<<5|len
+    zrl: np.ndarray     # (2, 2) int32: [cls] -> (code, len)
+    eob: np.ndarray     # (2, 2) int32: [cls] -> (code, len)
+
+
+def build_packed_tables(huff: dict) -> PackedTables:
+    ac512 = np.zeros(512, np.int32)
+    dc64 = np.zeros(64, np.int32)
+    zrl = np.zeros((2, 2), np.int32)
+    eob = np.zeros((2, 2), np.int32)
+    for ct in (ComponentType.LUMINANCE, ComponentType.CHROMINANCE):
+        c = int(ct)
+        dc: HuffmanTable = huff[(ct, HuffmanType.DC)]
+        ac: HuffmanTable = huff[(ct, HuffmanType.AC)]
+        ac512[c * 256:(c + 1) * 256] = \
+            (ac.ehufco.astype(np.int64) << 5 | ac.ehufsi).astype(np.int32)
+        dc64[c * 32:c * 32 + 16] = \
+            (dc.ehufco[:16].astype(np.int64) << 5 | dc.ehufsi[:16]).astype(np.int32)
+        zrl[c] = (int(ac.ehufco[0xF0]), int(ac.ehufsi[0xF0]))
+        eob[c] = (int(ac.ehufco[0x00]), int(ac.ehufsi[0x00]))
+    return PackedTables(ac512, dc64, zrl, eob)
+
+
+# ---------------------------------------------------------------------------
+# Segment geometry
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class SegGeometry:
+    """Per-plan int32 tensors of the entropy stage, on one device."""
+
+    dc_pred: torch.Tensor    # (NB,) scan index of the DC predecessor, -1 none
+    block_cls: torch.Tensor  # (NB,) 0 luma / 1 chroma
+    seg_start: torch.Tensor  # (S,) first block of each segment
+    seg_count: torch.Tensor  # (S,) blocks in each segment
+    rst: torch.Tensor        # (S,) RST marker byte 0xD0..0xD7
+    has_rst: torch.Tensor    # (S,) 1 unless the segment ends its scan
+    cap_out: int             # bytes of one segment's output row
+
+
+def segment_out_capacity(max_seg_blocks: int) -> int:
+    """Worst-case bytes of one segment's output row: every byte stuffed,
+    plus the two-byte marker, rounded up to 16."""
+    cap = 2 * max_seg_blocks * BLOCK_CAP_BYTES + 2
+    return -(-cap // 16) * 16
+
+
+def build_seg_geometry(plan: CoderPlan, device) -> SegGeometry:
+    g = build_enc_geometry(plan)
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a, np.int32),
+                               device=device)
+
+    return SegGeometry(
+        dc_pred=t(g.dc_pred_idx), block_cls=t(g.block_cls),
+        seg_start=t(g.seg_block_start), seg_count=t(g.seg_block_count),
+        rst=t(g.seg_rst_marker), has_rst=t(g.seg_has_rst),
+        cap_out=segment_out_capacity(int(plan.max_seg_block_count)))
+
+
+def _check(tensors: dict, device) -> None:
+    for name, (t, shape, dtype) in tensors.items():
+        if t.dtype != dtype or tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name} must be {tuple(shape)} {dtype}, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, expected {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+# ---------------------------------------------------------------------------
+# E2: per-block bit strings
+# ---------------------------------------------------------------------------
+
+def huffman_blocks(coeff: torch.Tensor, dc_pred: torch.Tensor,
+                   block_cls: torch.Tensor, ac512: torch.Tensor,
+                   dc64: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(NB, 64) int32 zig-zag coefficients in scan order -> (words (NB,
+    BLOCK_CAP_WORDS) int32 holding each block's bit string MSB first,
+    bits (NB,) int32). Words past a block's ``ceil(bits/32)`` are
+    unspecified."""
+    NB = coeff.shape[0]
+    _check({"coeff": (coeff, (NB, 64), torch.int32),
+            "dc_pred": (dc_pred, (NB,), torch.int32),
+            "block_cls": (block_cls, (NB,), torch.int32),
+            "ac512": (ac512, (512,), torch.int32),
+            "dc64": (dc64, (64,), torch.int32)}, coeff.device)
+    if coeff.device.type == "cpu":
+        return huffman_blocks_plain(coeff, dc_pred, block_cls, ac512, dc64)
+    if coeff.device.type != "cuda":
+        raise ValueError(f"unsupported device {coeff.device}")
+    words = torch.empty((NB, BLOCK_CAP_WORDS), dtype=torch.int32,
+                        device=coeff.device)
+    bits = torch.empty((NB,), dtype=torch.int32, device=coeff.device)
+    lib = _build.load_kernels()
+    err = lib.gj_huffman_blocks(
+        coeff.data_ptr(), NB, dc_pred.data_ptr(), block_cls.data_ptr(),
+        ac512.data_ptr(), dc64.data_ptr(), BLOCK_CAP_WORDS,
+        words.data_ptr(), bits.data_ptr(),
+        torch.cuda.current_stream(coeff.device).cuda_stream)
+    _build.check_launch("gj_huffman_blocks", err)
+    huffman_blocks.launches += 1
+    return words, bits
+
+
+huffman_blocks.launches = 0
+
+
+def _bit_length(a: torch.Tensor) -> torch.Tensor:
+    """Bit length of non-negative int64 values (JPEG category)."""
+    n = torch.zeros_like(a)
+    for s in (16, 8, 4, 2, 1):
+        big = a >= (1 << s)
+        n = n + big * s
+        a = torch.where(big, a >> s, a)
+    return n + (a > 0)
+
+
+def _value_bits(v: torch.Tensor, cat: torch.Tensor) -> torch.Tensor:
+    return torch.where(v >= 0, v, v + (1 << cat) - 1) & ((1 << cat) - 1)
+
+
+def _scatter_bits(words: torch.Tensor, row: torch.Tensor, vals: torch.Tensor,
+                  lens: torch.Tensor, offs: torch.Tensor) -> None:
+    """OR MSB-first fields of at most 32 bits into big-endian 32-bit words
+    held in int64 ``words`` (rows, n_words), in place. Fields are
+    disjoint, so adding is OR-ing."""
+    keep = lens > 0
+    row, vals, lens, offs = row[keep], vals[keep], lens[keep], offs[keep]
+    if row.numel() == 0:
+        return
+    n_words = words.shape[1]
+    w = row * n_words + (offs >> 5)
+    sh = 32 - (offs & 31) - lens                     # in [-31, 32]
+    lo = torch.where(sh >= 0, vals << sh.clamp(min=0), vals >> (-sh).clamp(min=0))
+    hi = torch.where(sh < 0, (vals << (32 + sh).clamp(0, 32)) & 0xFFFFFFFF, 0)
+    flat = words.view(-1)
+    flat.index_add_(0, w, lo)
+    spill = sh < 0
+    flat.index_add_(0, w[spill] + 1, hi[spill])
+
+
+def _to_int32_words(words: torch.Tensor) -> torch.Tensor:
+    """int64 words holding 32-bit patterns -> int32 of the same bits."""
+    return torch.where(words >= (1 << 31), words - (1 << 32),
+                       words).to(torch.int32)
+
+
+def huffman_blocks_plain(coeff: torch.Tensor, dc_pred: torch.Tensor,
+                         block_cls: torch.Tensor, ac512: torch.Tensor,
+                         dc64: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain torch version of :func:`huffman_blocks`: the golden coder's
+    symbols as arrays (``golden.encode_block``), offsets by cumsum and one
+    scatter of bit fields, :data:`PLAIN_CHUNK_BLOCKS` blocks at a time.
+    Words past a block's string are zero."""
+    dev = coeff.device
+    NB = coeff.shape[0]
+    c64 = coeff.to(torch.int64)
+    dc = c64[:, 0]
+    pred = dc_pred.to(torch.int64)
+    diff = dc - torch.where(pred < 0, 0, dc[pred.clamp(min=0)])
+    cls = block_cls.to(torch.int64)
+    ac_t = ac512.to(torch.int64)
+    dc_t = dc64.to(torch.int64)
+    words = torch.zeros((NB, BLOCK_CAP_WORDS), dtype=torch.int64, device=dev)
+    bits = torch.zeros((NB,), dtype=torch.int64, device=dev)
+    k = torch.arange(1, 64, device=dev)
+    for lo in range(0, NB, PLAIN_CHUNK_BLOCKS):
+        hi = min(NB, lo + PLAIN_CHUNK_BLOCKS)
+        n = hi - lo
+        cl = cls[lo:hi]
+        d = diff[lo:hi]
+        cat = _bit_length(d.abs())
+        e = dc_t[cl * 32 + cat]
+        dc_val = ((e >> 5) << cat) | _value_bits(d, cat)
+        dc_len = (e & 31) + cat
+
+        ac = c64[lo:hi, 1:]
+        nz = ac != 0
+        prev_incl = torch.cummax(torch.where(nz, k, 0), dim=1).values
+        prev = torch.cat([torch.zeros((n, 1), dtype=torch.int64, device=dev),
+                          prev_incl[:, :-1]], dim=1)
+        run = k - prev - 1
+        r16 = torch.where(nz, run >> 4, 0)
+        cat_ac = torch.where(nz, _bit_length(ac.abs()), 0)
+        e = ac_t[cl[:, None] * 256 + (((run & 15) << 4) | cat_ac)]
+        sym_val = ((e >> 5) << cat_ac) | _value_bits(ac, cat_ac)
+        sym_len = torch.where(nz, (e & 31) + cat_ac, 0)
+        zrl = ac_t[cl * 256 + 0xF0]
+        zrl_len = (zrl & 31)[:, None]
+        eob = ac_t[cl * 256]
+        eob_len = torch.where(ac[:, -1] == 0, eob & 31, 0)
+
+        # bit offsets: DC, then per AC position its ZRLs and its symbol,
+        # then the EOB
+        len_pos = torch.cat([dc_len[:, None], r16 * zrl_len + sym_len,
+                             eob_len[:, None]], dim=1)            # (n, 65)
+        csum = torch.cumsum(len_pos, dim=1)
+        off = csum - len_pos
+        bits[lo:hi] = csum[:, -1]
+
+        part = words[lo:hi]
+        local = torch.arange(n, device=dev)
+        _scatter_bits(part, local, dc_val, dc_len, off[:, 0])
+        _scatter_bits(part, local[:, None].expand(n, 63), sym_val, sym_len,
+                      off[:, 1:64] + r16 * zrl_len)
+        _scatter_bits(part, local, eob >> 5, eob_len, off[:, 64])
+        for j in range(3):     # at most three ZRLs precede one symbol
+            _scatter_bits(part, local[:, None].expand(n, 63),
+                          (zrl >> 5)[:, None].expand(n, 63),
+                          torch.where(r16 > j, zrl_len, 0),
+                          off[:, 1:64] + j * zrl_len)
+    return _to_int32_words(words), bits.to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# E3: per-segment merge, stuffing, RST
+# ---------------------------------------------------------------------------
+
+def merge_stuff(words: torch.Tensor, bits: torch.Tensor, seg_start: torch.Tensor,
+                seg_count: torch.Tensor, rst: torch.Tensor,
+                has_rst: torch.Tensor, cap_out: int):
+    """Per-block strings -> per-segment stuffed bytes with RST markers.
+
+    Returns (out (S, cap_out) uint8, out_len, seg_bits, n_ff), each (S,)
+    int32: the bytes of segment s are ``out[s, :out_len[s]]`` (RST
+    included); the rest of a row is unspecified."""
+    NB, S = bits.shape[0], seg_start.shape[0]
+    _check({"words": (words, (NB, BLOCK_CAP_WORDS), torch.int32),
+            "bits": (bits, (NB,), torch.int32),
+            "seg_start": (seg_start, (S,), torch.int32),
+            "seg_count": (seg_count, (S,), torch.int32),
+            "rst": (rst, (S,), torch.int32),
+            "has_rst": (has_rst, (S,), torch.int32)}, bits.device)
+    if bits.device.type == "cpu":
+        return merge_stuff_plain(words, bits, seg_start, seg_count, rst,
+                                 has_rst, cap_out)
+    if bits.device.type != "cuda":
+        raise ValueError(f"unsupported device {bits.device}")
+    dev = bits.device
+    out = torch.empty((S, cap_out), dtype=torch.uint8, device=dev)
+    out_len, seg_bits, n_ff = (
+        torch.empty((S,), dtype=torch.int32, device=dev) for _ in range(3))
+    lib = _build.load_kernels()
+    err = lib.gj_merge_stuff(
+        words.data_ptr(), bits.data_ptr(), BLOCK_CAP_WORDS,
+        seg_start.data_ptr(), seg_count.data_ptr(), rst.data_ptr(),
+        has_rst.data_ptr(), S, cap_out, out.data_ptr(), out_len.data_ptr(),
+        seg_bits.data_ptr(), n_ff.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check_launch("gj_merge_stuff", err)
+    merge_stuff.launches += 1
+    return out, out_len, seg_bits, n_ff
+
+
+merge_stuff.launches = 0
+
+
+def merge_stuff_plain(words: torch.Tensor, bits: torch.Tensor,
+                      seg_start: torch.Tensor, seg_count: torch.Tensor,
+                      rst: torch.Tensor, has_rst: torch.Tensor, cap_out: int):
+    """Plain torch version of :func:`merge_stuff`: exclusive cumsum of the
+    block bit lengths, one scatter of every used word into segment words,
+    then the JAX reference's array stuffing (``huffman_encode_kernel``
+    step 5). The segments must cover the blocks in order, as a plan's do.
+    Bytes past ``out_len`` are zero."""
+    dev = bits.device
+    S = seg_start.shape[0]
+    b64 = bits.to(torch.int64)
+    seg_of_block = torch.repeat_interleave(
+        torch.arange(S, device=dev), seg_count.to(torch.int64))
+    gpref = torch.cumsum(b64, 0) - b64
+    in_seg = gpref - gpref[seg_start.to(torch.int64)][seg_of_block]
+    seg_bits = torch.zeros(S, dtype=torch.int64, device=dev).index_add_(
+        0, seg_of_block, b64)
+    pad = (-seg_bits) & 7
+    seg_len = (seg_bits + pad) >> 3
+    n_words = int(((seg_len.max() + 3) >> 2).item()) + 1 if S else 1
+    seg_words = torch.zeros((S, n_words), dtype=torch.int64, device=dev)
+
+    # every used word of every block, as a field of up to 32 bits
+    w_used = int(((b64.max() + 31) >> 5).item()) if b64.numel() else 0
+    i = torch.arange(w_used, device=dev)
+    left = b64[:, None] - 32 * i                                 # (NB, w)
+    take = left.clamp(0, 32)
+    w = words[:, :w_used].to(torch.int64) & 0xFFFFFFFF
+    vals = w >> (32 - take).clamp(max=31)
+    vals = torch.where(take == 0, 0, vals)
+    row = seg_of_block[:, None].expand_as(take)
+    _scatter_bits(seg_words, row, vals, take, in_seg[:, None] + 32 * i)
+    # 1-bit padding to the byte boundary (T.81 F.1.2.3)
+    _scatter_bits(seg_words, torch.arange(S, device=dev), (1 << pad) - 1,
+                  pad, seg_bits)
+
+    by = torch.stack([(seg_words >> s) & 0xFF for s in (24, 16, 8, 0)],
+                     dim=-1).reshape(S, 4 * n_words)
+    idx = torch.arange(4 * n_words, device=dev)[None, :]
+    valid = idx < seg_len[:, None]
+    is_ff = (by == 0xFF) & valid
+    ff = is_ff.to(torch.int64)
+    stuff_pref = torch.cumsum(ff, dim=1) - ff
+    n_ff = ff.sum(dim=1)
+    out = torch.zeros((S, cap_out), dtype=torch.uint8, device=dev)
+    pos = (torch.arange(S, device=dev)[:, None] * cap_out + idx + stuff_pref)
+    out.view(-1)[pos[valid]] = by[valid].to(torch.uint8)
+    stuffed = seg_len + n_ff
+    hr = has_rst.to(torch.int64) > 0
+    base = torch.arange(S, device=dev) * cap_out + stuffed
+    out.view(-1)[base[hr]] = 0xFF
+    out.view(-1)[base[hr] + 1] = rst.to(torch.int64)[hr].to(torch.uint8)
+    out_len = stuffed + 2 * hr.to(torch.int64)
+    return (out, out_len.to(torch.int32), seg_bits.to(torch.int32),
+            n_ff.to(torch.int32))

@@ -1,0 +1,84 @@
+"""The port's host layer against the JAX package: import hygiene, golden
+encode bytes and golden decode pixels (gpujpeg_tpu_torch vs gpujpeg_tpu)."""
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from conftest import make_test_rgb
+
+import gpujpeg_tpu as ref
+import gpujpeg_tpu_torch as port
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _params(mod, w, h, q, ri, interleaved=False):
+    image = mod.ImageParameters(width=w, height=h,
+                                color_space=mod.ColorSpace.RGB,
+                                pixel_format=mod.PixelFormat.PF_444_U8_P012)
+    return mod.Parameters(quality=q, restart_interval=ri,
+                          interleaved=interleaved), image
+
+
+def test_port_imports_without_jax():
+    code = ("import sys, gpujpeg_tpu_torch; "
+            "bad = [m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'gpujpeg_tpu')]; "
+            "assert not bad, bad; print('clean')")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0 and "clean" in r.stdout, r.stderr[-2000:]
+
+
+@pytest.mark.parametrize("ri", [0, 2, 32])
+@pytest.mark.parametrize("q", [75, 90])
+@pytest.mark.parametrize("h,w", [(64, 80), (17, 13), (256, 256)])
+def test_golden_bytes_and_pixels_match_reference(h, w, q, ri):
+    img = make_test_rgb(h, w)
+    pp, pi = _params(port, w, h, q, ri)
+    rp, ri_ = _params(ref, w, h, q, ri)
+    data = port.Encoder(backend="golden").encode(img.reshape(-1), pp, pi)
+    expect = ref.Encoder(backend="golden").encode(img.reshape(-1), rp, ri_)
+    assert data == expect
+    raw, info = port.Decoder(backend="golden").decode(data)
+    raw_ref, info_ref = ref.Decoder(backend="golden").decode(expect)
+    assert (info.width, info.height) == (info_ref.width, info_ref.height)
+    np.testing.assert_array_equal(raw, raw_ref)
+
+
+def test_golden_decode_interleaved_and_grayscale_output():
+    img = make_test_rgb(48, 64)
+    pp, pi = _params(port, 64, 48, 85, 3, interleaved=True)
+    rp, ri_ = _params(ref, 64, 48, 85, 3, interleaved=True)
+    data = ref.Encoder(backend="golden").encode(img.reshape(-1), rp, ri_)
+    assert port.Encoder(backend="golden").encode(img.reshape(-1), pp,
+                                                 pi) == data
+    # PixelFormat.U8 == 0 is falsy: the requested grayscale output must
+    # still be honoured
+    dec, dec_ref = port.Decoder(), ref.Decoder(backend="golden")
+    dec.set_output_format(port.YCBCR_JPEG, port.PixelFormat.U8)
+    dec_ref.set_output_format(ref.YCBCR_JPEG, ref.PixelFormat.U8)
+    raw, info = dec.decode(data)
+    raw_ref, _ = dec_ref.decode(data)
+    assert info.pixel_format == port.PixelFormat.U8
+    assert raw.size == 48 * 64
+    np.testing.assert_array_equal(raw, raw_ref)
+
+
+def test_cuda_device_without_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        port.Encoder(backend="torch", device="cuda")
+
+
+def test_unknown_backends_raise():
+    with pytest.raises(ValueError):
+        port.Encoder(backend="jax")
+    with pytest.raises(ValueError):
+        port.Decoder(backend="torch")
