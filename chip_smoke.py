@@ -1,4 +1,4 @@
-"""Run the PyTorch/CUDA port's encode main path once on one CUDA card.
+"""Run the PyTorch/CUDA port's encode and decode main paths on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -45,6 +45,12 @@ TIE_EPS = 1e-4          # |frac(q64) - .5| below which rounding may differ
 MAX_TIE_SHARE = 1e-6    # E1 kernel vs plain: share of tie differences
 PSNR_DB = 0.1
 REPLACES = "gpujpeg_tpu/ops/entropy_v2.py:955"
+D2_TIE_EPS = 1e-3        # |frac(y64) - .5| below which IDCT rounding may differ
+D2_MAX_TIE_SHARE = 1e-5  # D2 kernel vs plain: share of tie differences
+DEC_PSNR_DB = 0.01
+REPLACES_D1 = "gpujpeg_tpu/ops/pallas_decode_v3.py:100"
+REPLACES_D2 = ("gpujpeg_tpu/ops/pallas_decode_v3.py:596 + "
+               "gpujpeg_tpu/ops/pallas_decode.py:238")
 
 
 def fail(msg: str) -> None:
@@ -322,6 +328,269 @@ def phase_encode(gj, img, params, image, plan, card: str,
           f"upload {stages[0]:.3f} ms, E1-E3 {stages[1]:.3f} ms, length "
           f"sync + compaction + D2H {stages[2]:.3f} ms, stream assembly "
           f"{stages[3]:.3f} ms", flush=True)
+    return launches, data
+
+
+def decode_parts(gj, data: bytes, device, out_cs=None):
+    """Parse a stream; return (info, plan, golden decode inputs, device
+    decode context, rows on ``device``). ``out_cs``: the output colour
+    space (RGB by default)."""
+    from gpujpeg_tpu_torch.models.decoder import huffman_maps
+    from gpujpeg_tpu_torch.ops.decode import build_rows
+    from gpujpeg_tpu_torch.ops.pipeline import _dec_context
+    from gpujpeg_tpu_torch.stream.reader import read_image
+    info = read_image(data)
+    plan, scan_data, segs = gj.Decoder(backend="golden")._plan_from_info(info)
+    dc, ac = huffman_maps(info)
+    out_image = gj.ImageParameters(
+        width=info.width, height=info.height,
+        color_space=gj.ColorSpace.RGB if out_cs is None else out_cs,
+        pixel_format=gj.PixelFormat.PF_444_U8_P012)
+    ctx = _dec_context({}, plan, info, dc, ac, out_image, torch.device(device))
+    rows = torch.from_numpy(build_rows(plan, scan_data, segs)).to(device)
+    return info, plan, (plan, scan_data, segs, dc, ac), ctx, rows
+
+
+def idct_tie_distance(ctx, info, coeff, diff) -> float:
+    """Largest |frac(y64) - .5| over the (row, col, component) entries of
+    the (H, W, 3) mask ``diff`` (y64: the float64 IDCT value + 128)."""
+    from gpujpeg_tpu_torch.tables import idct_dequant_matrix
+    ys, xs, cs = torch.nonzero(diff, as_tuple=True)
+    if ys.numel() == 0:
+        return 0.0
+    plan = ctx.plan
+    nbx, nblk = plan.image.width // 8, plan.n_blocks // 3
+    pos = (ys // 8) * nbx + xs // 8
+    row = pos * 3 + cs if ctx.interleaved else cs * nblk + pos
+    p = (ys % 8) * 8 + xs % 8
+    W64 = torch.stack([torch.as_tensor(idct_dequant_matrix(np.asarray(
+        info.quant_tables[info.components[c.index].quant_table_index])))
+        for c in plan.components]).to(coeff.device)      # (3, 64, 64)
+    y = (coeff[row].double() * W64[cs, :, p]).sum(1) + 128.0
+    return float((y - torch.floor(y) - 0.5).abs().max())
+
+
+def cuda_ms_once(fn):
+    """(fn(), device ms of that one run by CUDA events)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop)
+
+
+def phase_decode_kernels(gj, data: bytes, card: str) -> list[dict]:
+    """Phase 5: D1 and D2 against their plain versions on the card."""
+    from gpujpeg_tpu_torch.native import decode_segments_native
+    from gpujpeg_tpu_torch.ops import dct, decode
+    from gpujpeg_tpu_torch.ops.rgbpack import (
+        planes_to_rgb, transform_consts_tensor)
+    info, plan, gold_args, ctx, rows = decode_parts(gj, data, "cuda")
+    t = ctx.tables
+    H, W = ctx.shape
+    d1 = (rows, ctx.seg_start, ctx.seg_count, ctx.block_comp, t.quick,
+          t.maxcode, t.delta, t.huffval, t.dc_slot, t.ac_slot)
+    coeff = decode.huffman_decode(*d1)
+    coeff_p, d1_plain_ms = cuda_ms_once(lambda: decode.huffman_decode_plain(*d1))
+    gold = torch.from_numpy(decode_segments_native(*gold_args)).cuda()
+    bad_p = int((coeff != coeff_p).sum())
+    bad_g = int((coeff != gold).sum())
+    err1 = int((coeff - coeff_p).abs().max())
+    print(f"phase 5: D1 huffman_decode {plan.n_segments} segments, "
+          f"{plan.n_blocks} blocks, rows {tuple(rows.shape)}: {bad_p} "
+          f"coefficients differ from the plain version, {bad_g} from the "
+          f"native golden decoder", flush=True)
+    if bad_p or bad_g:
+        fail("D1 disagrees with its plain version or the golden decoder")
+    del coeff_p, gold
+
+    xf_id = transform_consts_tensor((None, None), "cuda")
+    d2_id = (coeff, t.wq, t.q_of, xf_id, ctx.interleaved, H, W)
+    px = dct.idct_rgb(*d2_id)
+    px_p = dct.idct_rgb_plain(*d2_id)
+    d = (px.int() - px_p.int()).abs()
+    n_diff = int((d != 0).sum())
+    err2 = int(d.max())
+    tie_dist = idct_tie_distance(ctx, info, coeff, d != 0)
+    vals = ctx.xf.tolist()
+    consts = (None, None) if vals[12] else (vals[:9], vals[9:12])
+    d2 = (coeff, t.wq, t.q_of, ctx.xf, ctx.interleaved, H, W)
+    rgb = dct.idct_rgb(*d2)
+    rgb_own = planes_to_rgb(px.permute(2, 0, 1).int(), consts)
+    xf_bad = int((rgb != rgb_own).sum())
+    rgb_diff = int((rgb != dct.idct_rgb_plain(*d2)).any(2).sum())
+    print(f"phase 5: D2 idct_rgb {n_diff} of {px.numel()} values differ "
+          f"from the plain version before the colour transform, max |d| "
+          f"{err2}, farthest from a .5 tie {tie_dist:.3g}; {rgb_diff} RGB "
+          f"pixels differ; {xf_bad} bytes differ from the plain transform "
+          f"of the kernel's own values", flush=True)
+    if err2 > 1 or n_diff > D2_MAX_TIE_SHARE * px.numel() \
+            or tie_dist > D2_TIE_EPS:
+        fail("D2 disagrees with its plain version beyond .5 ties")
+    if xf_bad:
+        fail("D2's inverse colour transform is not exact")
+
+    rows_out = []
+    for name, src, repl, kern, plain, args, errv, plain_ms in (
+            ("huffman_decode", "huffman_decode.cu", REPLACES_D1,
+             decode.huffman_decode, None, d1, err1, d1_plain_ms),
+            ("idct_rgb", "idct_rgb.cu", REPLACES_D2, dct.idct_rgb,
+             dct.idct_rgb_plain, d2, err2, None)):
+        ms = cuda_ms(lambda: kern(*args), 10)
+        if plain is not None:
+            plain_ms = cuda_ms(lambda: plain(*args), 1)
+        print(f"phase 5: {card}: {name} {ms:.4f} ms, plain {plain_ms:.4f} "
+              f"ms", flush=True)
+        rows_out.append({"name": name, "route": "cuda",
+                         "source": f"gpujpeg_tpu_torch/csrc/{src}",
+                         "replaces": repl, "launches": 0,
+                         "max_abs_err": errv, "ms": ms,
+                         "plain_ms": plain_ms})
+    return rows_out
+
+
+def dec_stage_ms(gj, dec, data: bytes) -> np.ndarray:
+    """Host-clock ms of the decode's stages, each ended by a sync:
+    parse (with the context lookup), row build, upload, D1+D2, D2H."""
+    from gpujpeg_tpu_torch.models.decoder import huffman_maps
+    from gpujpeg_tpu_torch.ops.decode import build_rows
+    from gpujpeg_tpu_torch.ops.pipeline import _dec_context
+    from gpujpeg_tpu_torch.stream.reader import read_image
+    t = [time.perf_counter()]
+    info = read_image(data)
+    plan, scan_data, segs = dec._plan_from_info(info)
+    out_image = gj.ImageParameters(
+        width=info.width, height=info.height, color_space=gj.ColorSpace.RGB,
+        pixel_format=gj.PixelFormat.PF_444_U8_P012)
+    ctx = _dec_context(dec._contexts, plan, info, *huffman_maps(info),
+                       out_image, dec.device)
+    t.append(time.perf_counter())
+    rows = build_rows(plan, scan_data, segs)
+    t.append(time.perf_counter())
+    rows_d = torch.from_numpy(rows).to(dec.device)
+    torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    rgb = ctx.run(rows_d)
+    torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    rgb.cpu().numpy()
+    t.append(time.perf_counter())
+    return np.diff(t) * 1e3
+
+
+def phase_decode(gj, img, data: bytes, card: str) -> dict:
+    """Phase 6: the public decode end to end, checked against golden."""
+    from gpujpeg_tpu_torch.ops import dct, decode
+    from gpujpeg_tpu_torch.stream.reader import read_image
+
+    kernels = (decode.huffman_decode, dct.idct_rgb)
+    dec = gj.Decoder(backend="torch", device="cuda")
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    raw, oi = dec.decode(data)
+    first_ms = (time.perf_counter() - t0) * 1e3
+    launches = {k.__name__: k.launches for k in kernels}
+    if min(launches.values()) < 1:
+        fail(f"a kernel of the decode path did not launch: {launches}")
+    steady = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        again, _ = dec.decode(data)
+        steady.append((time.perf_counter() - t0) * 1e3)
+    if not np.array_equal(again, raw):
+        fail("two decodes of one stream differ")
+    stats = dec.stats.asdict()
+    dev, _ = dec.decode_to_device(data)
+    if not (dev.is_cuda and dev.dtype == torch.uint8
+            and tuple(dev.shape) == (oi.height * oi.width * 3,)
+            and torch.equal(dev.cpu(), torch.from_numpy(raw))):
+        fail("decode_to_device differs from the host result")
+    del dev
+
+    # before the colour transform (output = the stream's own colour
+    # space): within 1 of the float64 golden decoder
+    H, W = oi.height, oi.width
+    cs = read_image(data).color_space
+    outs = {}
+    for backend in ("torch", "golden"):
+        for name, ocs in (("rgb", gj.ColorSpace.RGB), ("id", cs)):
+            dd = gj.Decoder(backend=backend, device="cuda")
+            dd.set_output_format(ocs, gj.PixelFormat.PF_444_U8_P012)
+            outs[backend, name] = dd.decode(data)[0].reshape(H, W, 3)
+    if not np.array_equal(outs["torch", "rgb"], raw.reshape(H, W, 3)):
+        fail("the RGB decode differs between two decoders")
+    d_id = np.abs(outs["torch", "id"].astype(int) - outs["golden", "id"])
+    id_px = d_id.any(axis=2)
+    d_rgb = np.abs(outs["torch", "rgb"].astype(int) - outs["golden", "rgb"])
+    rgb_px = d_rgb.any(axis=2)
+    p_t, p_g = psnr(raw.reshape(img.shape), img), \
+        psnr(outs["golden", "rgb"], img)
+    print(f"phase 6: decode {W}x{H}: launches {launches}; against the "
+          f"golden decoder {int((d_id != 0).sum())} values differ before "
+          f"the colour transform (max |d| {int(d_id.max())}), "
+          f"{int(rgb_px.sum())} RGB pixels differ (max |d| "
+          f"{int(d_rgb.max())}), {int((rgb_px & ~id_px).sum())} of them "
+          f"where the values agree; PSNR {p_t:.4f} dB vs golden "
+          f"{p_g:.4f} dB", flush=True)
+    if d_id.max() > 1:
+        fail("the decode differs from golden by more than 1 before the "
+             "colour transform")
+    if (rgb_px & ~id_px).any():
+        fail("an RGB pixel differs where the untransformed values agree")
+    if abs(p_t - p_g) > DEC_PSNR_DB:
+        fail("PSNR differs from the golden decode's by more than 0.01 dB")
+
+    # a 256x256 stream: the card against the CPU plain path
+    small = make_image(256, 256)
+    sp, si, _ = setup(gj, 256, 256)
+    s_data = gj.Encoder(backend="torch", device="cuda").encode(
+        small.reshape(-1), sp, si)
+    s_cuda, _ = dec.decode(s_data)
+    s_cpu, _ = gj.Decoder(backend="torch", device="cpu").decode(s_data)
+    info_s, _, _, ctx_s, rows_s = decode_parts(gj, s_data, "cuda")
+    coeff_s = decode.huffman_decode(
+        rows_s, ctx_s.seg_start, ctx_s.seg_count, ctx_s.block_comp,
+        *(getattr(ctx_s.tables, n) for n in (
+            "quick", "maxcode", "delta", "huffval", "dc_slot", "ac_slot")))
+    s_id = {}
+    for device in ("cuda", "cpu"):
+        dd = gj.Decoder(backend="torch", device=device)
+        dd.set_output_format(info_s.color_space,
+                             gj.PixelFormat.PF_444_U8_P012)
+        s_id[device] = torch.from_numpy(
+            dd.decode(s_data)[0].reshape(256, 256, 3).astype(np.int32))
+    s_diff = s_id["cuda"] != s_id["cpu"]
+    s_tie = idct_tie_distance(ctx_s, info_s, coeff_s, s_diff.cuda())
+    s_px = int((s_cuda != s_cpu).reshape(256, 256, 3).any(axis=2).sum())
+    print(f"phase 6: 256x256: {int(s_diff.sum())} values differ between "
+          f"the card and the CPU plain path before the colour transform "
+          f"(farthest from a .5 tie {s_tie:.3g}), {s_px} RGB pixels",
+          flush=True)
+    if (s_id["cuda"] - s_id["cpu"]).abs().max() > 1 or s_tie > D2_TIE_EPS:
+        fail("256x256 decode on the card differs from the CPU plain path "
+             "beyond .5 ties")
+
+    stages = np.median([dec_stage_ms(gj, dec, data) for _ in range(3)],
+                       axis=0)
+    ctx = next(iter(dec._contexts.values()))
+    from gpujpeg_tpu_torch.ops.decode import build_rows
+    info = read_image(data)
+    plan, sd, segs = dec._plan_from_info(info)
+    rows_d = torch.from_numpy(build_rows(plan, sd, segs)).cuda()
+    device_ms = cuda_ms(lambda: ctx.run(rows_d), 10)
+    print(f"phase 6: {card}: decode first call {first_ms:.3f} ms, steady "
+          f"{float(np.median(steady)):.3f} ms (median of 5, host clock, "
+          f"parse, row build, upload and copy back included); D1+D2 "
+          f"device {device_ms:.4f} ms (CUDA events); stats {stats}",
+          flush=True)
+    print(f"phase 6: {card}: decode stages (host clock, median of 3): "
+          f"parse {stages[0]:.3f} ms, row build {stages[1]:.3f} ms, upload "
+          f"{stages[2]:.3f} ms, D1+D2 {stages[3]:.3f} ms, D2H "
+          f"{stages[4]:.3f} ms", flush=True)
     return launches
 
 
@@ -358,7 +627,11 @@ def main() -> None:
     del ctx, rgb
     torch.cuda.empty_cache()
 
-    launches = phase_encode(gj, img, params, image, plan, card)
+    launches, data = phase_encode(gj, img, params, image, plan, card)
+    torch.cuda.empty_cache()
+    rows += phase_decode_kernels(gj, data, card)
+    torch.cuda.empty_cache()
+    launches.update(phase_decode(gj, img, data, card))
     for r in rows:
         r["launches"] = launches[r["name"]]
     print(json.dumps({"kernels": rows}), flush=True)

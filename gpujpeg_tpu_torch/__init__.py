@@ -2,13 +2,12 @@
 (ITU-T T.81) encoder/decoder.
 
 The JAX package ``gpujpeg_tpu`` is the reference; this package mirrors
-its public API and is held against it on the same inputs. The encode
-runs on a torch device (``Encoder(backend="torch", device="cuda")``)
-through hand-written CUDA kernels for Hopper (``csrc/``), built with
-``nvcc`` at first use; on ``device="cpu"`` the same path runs the
-kernels' plain torch versions. ``backend="golden"`` is the host
-NumPy/C++ coder, and decoding is host-only (``Decoder(backend="golden")``)
-in this version.
+its public API and is held against it on the same inputs. Encode and
+decode run on a torch device (``Encoder(backend="torch",
+device="cuda")``, ``Decoder(backend="torch", device="cuda")``) through
+hand-written CUDA kernels for Hopper (``csrc/``), built with ``nvcc`` at
+first use; on ``device="cpu"`` the same paths run the kernels' plain
+torch versions. ``backend="golden"`` is the host NumPy/C++ coder.
 
 Importing the package compiles nothing and never imports JAX.
 """

@@ -36,6 +36,9 @@ SIGNATURES = {
     "gj_huffman_blocks": [_P, _I, _P, _P, _P, _P, _I, _P, _P, _P],
     "gj_merge_stuff": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P,
                        _P],
+    "gj_huffman_decode": [_P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I,
+                          _P, _P],
+    "gj_idct_rgb": [_P, _I, _I, _P, _I, _P, _P, _I, _P, _P],
 }
 
 

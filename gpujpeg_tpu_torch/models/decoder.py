@@ -2,15 +2,20 @@
 (reference: src/gpujpeg_decoder.c:206-402).
 
 Pipeline: parse -> Huffman decode -> dequant+IDCT -> postprocess -> raw
-output, all on the host: the native C++ segment decoder (NumPy golden
-decoder without a compiler), float64 IDCT and the NumPy postprocess. This
-is the port's ``golden`` backend; the device decode is not ported yet.
+output. Backend ``"golden"`` runs it all on the host: the native C++
+segment decoder (NumPy golden decoder without a compiler), float64 IDCT
+and the NumPy postprocess. Backend ``"torch"`` runs the Huffman decode,
+IDCT and colour transform on a torch device (``ops/pipeline.py``):
+hand-written CUDA kernels on ``"cuda"``, their plain torch versions on
+``"cpu"``. Like the reference, streams with few segments take the host
+decoder (gpujpeg_decoder.c:238-252).
 """
 from __future__ import annotations
 
 import time
 
 import numpy as np
+import torch
 
 from ..ops import golden
 from ..ops.blocks import blocks_to_plane
@@ -20,7 +25,11 @@ from ..plan import make_plan
 from ..stream import reader as stream_reader
 from ..types import ColorSpace, PixelFormat, SamplingFactor
 
-BACKENDS = ("golden",)
+BACKENDS = ("torch", "golden")
+
+#: Below this many segments the host decoder wins
+#: (reference: gpujpeg_decoder.c:238 uses 32).
+CPU_SEGMENT_THRESHOLD = 32
 
 
 def huffman_maps(info) -> tuple[list, list]:
@@ -56,24 +65,78 @@ def huffman_maps(info) -> tuple[list, list]:
 class DecoderStats:
     def __init__(self) -> None:
         self.duration_stream = 0.0
+        self.duration_memory_to = 0.0      # segment-rows upload
         self.duration_huffman_coder = 0.0
         self.duration_dct_quantization = 0.0
         self.duration_postprocessor = 0.0
+        self.duration_memory_from = 0.0    # raw-image copy to the host
+        self.duration_in_gpu = 0.0         # device kernels, to a sync
+        self.bytes_memory_to = 0           # upload payload (device path)
 
     def asdict(self) -> dict[str, float]:
         return dict(self.__dict__)
 
 
 class Decoder:
-    def __init__(self, backend: str = "golden"):
+    """Reusable decoder. Holds, per recent (geometry, tables), the device
+    operands of the torch backend.
+
+    ``device`` is where the torch backend runs. ``"cuda"`` needs a CUDA
+    device and raises without one; ``"cpu"`` runs the kernels' plain
+    torch versions. The golden backend ignores it."""
+
+    def __init__(self, backend: str = "torch", device="cuda"):
         if backend not in BACKENDS:
-            raise ValueError(f"backend must be one of {BACKENDS}, got "
-                             f"{backend!r} (the device decode is not "
-                             f"ported yet)")
+            raise ValueError(f"backend must be one of {BACKENDS}, "
+                             f"got {backend!r}")
         self.backend = backend
+        self.device = torch.device(device)
+        if backend == "torch":
+            if self.device.type == "cuda" and not torch.cuda.is_available():
+                raise RuntimeError("device 'cuda' requested but no CUDA "
+                                   "device is available")
+            if self.device.type not in ("cuda", "cpu"):
+                raise ValueError(f"unsupported device {self.device}")
         self.stats = DecoderStats()
         self.output_format: PixelFormat | None = None
         self.output_color_space: ColorSpace | None = None
+        self.output_to_device = False
+        self._contexts: dict = {}
+
+    def init(self, params, image) -> None:
+        """Pre-initialise for a known stream geometry so the first real
+        decode skips the kernel build and the per-geometry set-up
+        (reference: gpujpeg_decoder_init, gpujpeg_decoder.c:158-202):
+        encodes a natural-statistics frame of that geometry with this
+        decoder's backend and device, and decodes it."""
+        from ..types import image_calculate_size
+        from .encoder import Encoder
+        size = image_calculate_size(image.width, image.height,
+                                    image.pixel_format)
+        rng = np.random.default_rng(7)
+        H = max(image.height, 1)
+        rowb = size // H
+        y, x = np.mgrid[0:H, 0:rowb]
+        buf = np.clip(128 + 80 * np.sin(x / 23.0) * np.cos(y / 17.0)
+                      + rng.normal(0, 4.0, (H, rowb)),
+                      0, 255).astype(np.uint8).reshape(-1)
+        if buf.size < size:     # height-indivisible tail bytes
+            buf = np.concatenate([buf, np.full(size - buf.size, 128,
+                                               np.uint8)])
+        enc = Encoder(backend=self.backend, device=self.device)
+        self.decode(enc.encode(buf, params, image))
+
+    def decode_to_device(self, data: bytes):
+        """Decode leaving the raw image on the decoder's device: returns
+        (flat uint8 tensor, ImageParameters) on the torch backend — the
+        analog of the reference's custom-CUDA-buffer outputs
+        (gpujpeg_decoder.c:286-317). The golden backend returns a host
+        array."""
+        self.output_to_device = True
+        try:
+            return self.decode(data)
+        finally:
+            self.output_to_device = False
 
     def set_output_format(self, color_space: ColorSpace,
                           pixel_format: PixelFormat) -> None:
@@ -103,6 +166,27 @@ class Decoder:
                           else info.deduce_pixel_format()),
         )
 
+        if self.backend == "golden" or \
+                plan.n_segments < CPU_SEGMENT_THRESHOLD:
+            raw = self._decode_golden(info, plan, scan_data,
+                                      segments_by_scan, dc_by_comp,
+                                      ac_by_comp, out_image)
+            if self.output_to_device and self.backend == "torch":
+                raw = torch.from_numpy(raw).to(self.device)
+            return raw, out_image
+
+        from ..ops.pipeline import decode_device
+        raw = decode_device(self, plan, info, scan_data, segments_by_scan,
+                            dc_by_comp, ac_by_comp, out_image)
+        if self.output_to_device:
+            return raw, out_image
+        t0 = time.perf_counter()
+        host = raw.cpu().numpy()
+        self.stats.duration_memory_from = (time.perf_counter() - t0) * 1e3
+        return host, out_image
+
+    def _decode_golden(self, info, plan, scan_data, segments_by_scan,
+                       dc_by_comp, ac_by_comp, out_image) -> np.ndarray:
         t1 = time.perf_counter()
         from ..native import decode_segments_native
         coeff_scan = decode_segments_native(
@@ -126,7 +210,7 @@ class Decoder:
         self.stats.duration_huffman_coder = (t2 - t1) * 1e3
         self.stats.duration_dct_quantization = (t3 - t2) * 1e3
         self.stats.duration_postprocessor = (t4 - t3) * 1e3
-        return np.asarray(raw), out_image
+        return np.asarray(raw)
 
     # ------------------------------------------------------------------
     def _plan_from_info(self, info: stream_reader.JpegInfo):

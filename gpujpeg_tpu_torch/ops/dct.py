@@ -1,6 +1,7 @@
-"""E1: colour transform + blockify + DCT + quantisation of interleaved RGB.
+"""E1 and D2: the dense stages of the device encode and decode.
 
-:func:`fdct_quant` is the wrapper of the hand-written CUDA kernel
+**E1**: colour transform + blockify + DCT + quantisation of interleaved
+RGB. :func:`fdct_quant` is the wrapper of the hand-written CUDA kernel
 ``csrc/fdct_quant.cu`` (it replaces stages 1-2 of the JAX reference's
 ``entropy_v2.encode_dct_fused_full``, K1, and the XLA words front end
 before it). :func:`fdct_quant_plain` is its plain torch version; the
@@ -12,13 +13,25 @@ arithmetic of the reference's ``_stage1_dct_tile``. Division is IEEE
 round-to-nearest and rounding is half-to-even. The two sum the 64 terms
 in different orders, so a quotient within rounding distance of .5 can
 differ by one between them (and between either and the JAX package).
+
+**D2**: dequantisation + IDCT + inverse colour transform + unblockify.
+:func:`idct_rgb` wraps ``csrc/idct_rgb.cu`` (it replaces the fused
+dequant+IDCT tail of ``pallas_decode_v3.run_pixels``, K2, the
+``pallas_decode.unblockify_bands`` kernel, K3, and the XLA
+``rgbpack.interleave_raw_words`` after them); :func:`idct_rgb_plain` is
+its plain torch version. Both compute ``clip(rint(x @ Wq + 128), 0,
+255)`` in float32 per component, with ``Wq`` the component's
+``tables.idct_operator_f32``, then the exact integer inverse transform
+(``rgbpack.planes_to_rgb``). A value within float32 rounding of .5 may
+round differently between the two sums, so a pixel there can differ.
 """
 from __future__ import annotations
 
 import torch
 
 from .. import _build
-from .rgbpack import rgb_to_planes
+from .entropy import _check as check_operands
+from .rgbpack import planes_to_rgb, rgb_to_planes
 
 
 def _check(rgb, dct, bias, qdiv, xf):
@@ -88,3 +101,61 @@ def fdct_quant_plain(rgb: torch.Tensor, dct: torch.Tensor, bias: torch.Tensor,
     if interleaved:
         coeff = coeff.permute(1, 0, 2)
     return coeff.reshape(-1, 64).contiguous()
+
+
+def _check_idct(coeff, wq, q_of, xf, H, W):
+    if H % 8 or W % 8 or H <= 0 or W <= 0:
+        raise ValueError(f"image {W}x{H} is not a whole number of blocks")
+    n_q = wq.shape[0] if wq.dim() == 3 else 0
+    if not 1 <= n_q <= 3:
+        raise ValueError(f"wq must hold 1..3 operators, got {tuple(wq.shape)}")
+    check_operands({"coeff": (coeff, (3 * (H // 8) * (W // 8), 64),
+                              torch.int32),
+                    "wq": (wq, (n_q, 64, 64), torch.float32),
+                    "q_of": (q_of, (3,), torch.int32),
+                    "xf": (xf, (13,), torch.int32)}, coeff.device)
+
+
+def idct_rgb(coeff: torch.Tensor, wq: torch.Tensor, q_of: torch.Tensor,
+             xf: torch.Tensor, interleaved: bool, H: int,
+             W: int) -> torch.Tensor:
+    """(3*H/8*W/8, 64) int32 zig-zag coefficients in scan order (the
+    orders E1 writes) -> (H, W, 3) uint8 raw pixels. ``wq`` holds the
+    unique IDCT operators, ``q_of`` each component's index into them
+    (values below ``wq.shape[0]``), ``xf`` the inverse-transform
+    constants (``rgbpack.transform_consts_tensor``)."""
+    _check_idct(coeff, wq, q_of, xf, H, W)
+    if coeff.device.type == "cpu":
+        return idct_rgb_plain(coeff, wq, q_of, xf, interleaved, H, W)
+    if coeff.device.type != "cuda":
+        raise ValueError(f"unsupported device {coeff.device}")
+    out = torch.empty((H, W, 3), dtype=torch.uint8, device=coeff.device)
+    lib = _build.load_kernels()
+    err = lib.gj_idct_rgb(
+        coeff.data_ptr(), H, W, wq.data_ptr(), wq.shape[0], q_of.data_ptr(),
+        xf.data_ptr(), int(bool(interleaved)), out.data_ptr(),
+        torch.cuda.current_stream(coeff.device).cuda_stream)
+    _build.check_launch("gj_idct_rgb", err)
+    idct_rgb.launches += 1
+    return out
+
+
+idct_rgb.launches = 0
+
+
+def idct_rgb_plain(coeff: torch.Tensor, wq: torch.Tensor, q_of: torch.Tensor,
+                   xf: torch.Tensor, interleaved: bool, H: int,
+                   W: int) -> torch.Tensor:
+    """Plain torch version of :func:`idct_rgb` (a float32 matmul; on a
+    CUDA tensor the caller keeps TF32 off)."""
+    nblk = (H // 8) * (W // 8)
+    x = coeff.to(torch.float32)
+    x = x.view(nblk, 3, 64).permute(1, 0, 2) if interleaved \
+        else x.view(3, nblk, 64)
+    y = torch.matmul(x, wq[q_of.to(torch.int64)]) + 128.0
+    px = torch.clamp(torch.round(y), 0, 255).to(torch.int32)
+    planes = (px.view(3, H // 8, W // 8, 8, 8).permute(0, 1, 3, 2, 4)
+              .reshape(3, H, W))
+    vals = xf.tolist()
+    return planes_to_rgb(planes, (None, None) if vals[12]
+                         else (vals[:9], vals[9:12]))

@@ -1,21 +1,33 @@
-"""Device encode orchestration: raw RGB -> per-scan entropy bytes.
+"""Device encode and decode orchestration.
 
-Counterpart of the encode half of the JAX reference's
-``gpujpeg_tpu/ops/jax_pipeline.py``. A per-plan :class:`_EncContext`
-holds the plan's tables and geometry as tensors on the encoder's device;
-:func:`encode_segments_device` uploads the frame and runs
+Counterpart of the JAX reference's ``gpujpeg_tpu/ops/jax_pipeline.py``.
+
+**Encode** (raw RGB -> per-scan entropy bytes): a per-plan
+:class:`_EncContext` holds the plan's tables and geometry as tensors on
+the encoder's device; :func:`encode_segments_device` uploads the frame
+and runs
 
     E1 fdct_quant (ops/dct.py) -> E2 huffman_blocks -> E3 merge_stuff
     (ops/entropy.py) -> compact_segments (ops/huffman_encode.py)
 
-and splits the compacted bytes into scan bodies. On a CUDA device each
-stage is a hand-written kernel; on the CPU each runs its plain torch
-version.
+and splits the compacted bytes into scan bodies.
+
+**Decode** (entropy bytes -> raw RGB; the px branch of the reference's
+``_decode_device_v2``): a per-(plan, tables) :class:`_DecContext` holds
+the decode tables, IDCT operators and segment geometry on the decoder's
+device; :func:`decode_device` builds the destuffed segment rows on the
+host, uploads them and runs
+
+    D1 huffman_decode (ops/decode.py) -> D2 idct_rgb (ops/dct.py)
+
+On a CUDA device each stage is a hand-written kernel; on the CPU each
+runs its plain torch version.
 
 The reference's TPU machinery has no counterpart: its tier-1/tier-2
 capacities and overflow retry (E2 and E3 use worst-case capacities, so
-no segment can overflow), the kernel downgrade chain, vmap batching and
-16K chunking.
+no segment can overflow), the kernel downgrade chain, vmap batching,
+16K chunking, the decode's seg_tile sizing, v2/v3 route, wcap buckets,
+perf_stats staging jits and XLA fallback.
 """
 from __future__ import annotations
 
@@ -25,26 +37,45 @@ import numpy as np
 import torch
 
 from ..plan import CoderPlan
-from ..tables import device_tables
-from .dct import fdct_quant
+from ..tables import (
+    decode_device_tables, device_tables, idct_operator_f32)
+from .dct import fdct_quant, idct_rgb
+from .decode import (
+    build_dec_tables_v2, build_rows, huffman_decode, quant_slots,
+    table_slots)
 from .entropy import build_seg_geometry, huffman_blocks, merge_stuff
 from .huffman_encode import compact_segments
-from .rgbpack import pack_consts, pack_eligible, transform_consts_tensor
+from .rgbpack import (
+    pack_consts, pack_eligible, transform_consts_tensor, unpack_consts,
+    unpack_eligible)
 
 
-def device_eligible(plan: CoderPlan) -> bool:
-    """True when the device encode covers this plan: restart markers on,
-    interleaved RGB 4:4:4 input at full resolution (``pack_eligible``),
-    and the plan's scan order is component-major or Y/Cb/Cr per block
-    position (the two orders E1 writes)."""
-    if plan.params.restart_interval <= 0 or not pack_eligible(plan):
-        return False
+def _scan_order_ok(plan: CoderPlan) -> bool:
+    """True when the plan's scan order is component-major or Y/Cb/Cr per
+    block position (the two orders E1 writes and D2 reads)."""
     nblk = plan.components[0].block_count
     if plan.params.interleaved:
         order = (np.arange(nblk)[:, None] + nblk * np.arange(3)).reshape(-1)
     else:
         order = np.arange(3 * nblk)
     return np.array_equal(plan.block_plane_idx, order)
+
+
+def device_eligible(plan: CoderPlan) -> bool:
+    """True when the device encode covers this plan: restart markers on,
+    interleaved RGB 4:4:4 input at full resolution (``pack_eligible``),
+    and one of the two scan orders of :func:`_scan_order_ok`."""
+    return (plan.params.restart_interval > 0 and pack_eligible(plan)
+            and _scan_order_ok(plan))
+
+
+def decode_eligible(plan: CoderPlan, out_image) -> bool:
+    """True when the device decode covers this plan and output: restart
+    markers on, three full-resolution components, 4:4:4 interleaved RGB
+    output with an expressible inverse transform (``unpack_eligible``),
+    and one of the two scan orders of :func:`_scan_order_ok`."""
+    return (plan.params.restart_interval > 0
+            and unpack_eligible(plan, out_image) and _scan_order_ok(plan))
 
 
 class _EncContext:
@@ -125,3 +156,91 @@ def _split_scan_bodies(plan: CoderPlan, ctx: _EncContext, out: torch.Tensor,
         seg_sizes_by_scan.append(out_len_h[seg:seg + n].astype(np.int64))
         seg += n
     return scan_bodies, seg_sizes_by_scan
+
+
+# ---------------------------------------------------------------------------
+# Decode
+# ---------------------------------------------------------------------------
+
+#: decode contexts kept per decoder (one per recent geometry and table set)
+DEC_CONTEXTS = 4
+
+
+class _DecContext:
+    """The decode operands of one plan, output and table set: tables,
+    IDCT operators, inverse-transform constants and segment geometry."""
+
+    def __init__(self, plan: CoderPlan, out_image, tables,
+                 device: torch.device):
+        if not decode_eligible(plan, out_image):
+            raise NotImplementedError(
+                "the device decode covers 4:4:4 streams with restart "
+                "markers decoded to interleaved RGB; other plans and output "
+                "formats are not ported yet")
+        self.plan = plan
+        self.device = device
+        self.tables = tables
+
+        def t(a):
+            return torch.as_tensor(np.ascontiguousarray(a, np.int32),
+                                   device=device)
+
+        self.seg_start = t(plan.seg_block_start)
+        self.seg_count = t(plan.seg_block_count)
+        self.block_comp = t(plan.block_comp)
+        self.xf = transform_consts_tensor(unpack_consts(plan, out_image),
+                                          device)
+        self.interleaved = bool(plan.params.interleaved)
+        self.shape = (plan.image.height, plan.image.width)
+
+    def run(self, rows: torch.Tensor) -> torch.Tensor:
+        """(S, wcap) int32 rows on the context's device -> (H, W, 3)
+        uint8 pixels."""
+        t = self.tables
+        coeff = huffman_decode(rows, self.seg_start, self.seg_count,
+                               self.block_comp, t.quick, t.maxcode, t.delta,
+                               t.huffval, t.dc_slot, t.ac_slot)
+        return idct_rgb(coeff, t.wq, t.q_of, self.xf, self.interleaved,
+                        *self.shape)
+
+
+def _dec_context(cache: dict, plan: CoderPlan, info, dc_by_comp, ac_by_comp,
+                 out_image, device: torch.device) -> _DecContext:
+    uniq, dc_slot, ac_slot = table_slots(plan, dc_by_comp, ac_by_comp)
+    tabs = build_dec_tables_v2(uniq)
+    qts, q_of = quant_slots(plan, info)
+    key = (plan.params, plan.image, out_image, str(device), qts,
+           q_of.tobytes(), dc_slot.tobytes(), ac_slot.tobytes(),
+           tabs.quick.tobytes(), tabs.maxcode.tobytes(),
+           tabs.delta.tobytes(), tabs.huffval.tobytes())
+    ctx = cache.get(key)
+    if ctx is None:
+        wq = np.stack([idct_operator_f32(k) for k in qts])
+        ctx = _DecContext(plan, out_image, decode_device_tables(
+            tabs, dc_slot, ac_slot, wq, q_of, device), device)
+        while len(cache) >= DEC_CONTEXTS:
+            cache.pop(next(iter(cache)))
+        cache[key] = ctx
+    return ctx
+
+
+def decode_device(decoder, plan: CoderPlan, info, scan_data,
+                  segments_by_scan, dc_by_comp, ac_by_comp,
+                  out_image) -> torch.Tensor:
+    """Run the device decode; returns the (H*W*3,) uint8 raw pixels on
+    the decoder's device and fills the decoder's upload and device
+    stats."""
+    ctx = _dec_context(decoder._contexts, plan, info, dc_by_comp, ac_by_comp,
+                       out_image, decoder.device)
+    rows = build_rows(plan, scan_data, segments_by_scan)
+    t0 = time.perf_counter()
+    rows_dev = torch.from_numpy(rows).to(ctx.device)
+    t1 = time.perf_counter()
+    rgb = ctx.run(rows_dev)
+    if ctx.device.type == "cuda":
+        torch.cuda.synchronize(ctx.device)
+    t2 = time.perf_counter()
+    decoder.stats.bytes_memory_to = int(rows.nbytes)
+    decoder.stats.duration_memory_to = (t1 - t0) * 1e3
+    decoder.stats.duration_in_gpu = (t2 - t1) * 1e3
+    return rgb.view(-1)

@@ -343,6 +343,14 @@ def idct_dequant_matrix(quant_zz: np.ndarray) -> np.ndarray:
     return W.T.copy()                         # c(row) @ W(64,64)
 
 
+@functools.lru_cache(maxsize=16)
+def idct_operator_f32(quant_zz_key: tuple) -> np.ndarray:
+    """float32 :func:`idct_dequant_matrix` of a zig-zag quant table given
+    as a tuple (rows: zig-zag coefficient k, columns: natural pixel p)."""
+    quant_zz = np.array(quant_zz_key, dtype=np.int32)
+    return idct_dequant_matrix(quant_zz).astype(np.float32)
+
+
 # ---------------------------------------------------------------------------
 # Device tensors of the tables
 # ---------------------------------------------------------------------------
@@ -392,3 +400,42 @@ def device_tables(quant_zz: dict, huff: dict, device) -> DeviceTables:
         dct=torch.as_tensor(D64.astype(np.float32), device=device),
         bias=torch.as_tensor(bias64.astype(np.float32), device=device),
     )
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodeTables:
+    """The decoder's tables as tensors on one device (all int32 but
+    ``wq``)."""
+
+    quick: "torch.Tensor"    # (n_slots, 256) sym<<5 | len, len 0 = slow path
+    maxcode: "torch.Tensor"  # (n_slots, 18) scaled to a 16-bit peek
+    delta: "torch.Tensor"    # (n_slots, 17) valptr - mincode per length
+    huffval: "torch.Tensor"  # (n_slots, 256)
+    dc_slot: "torch.Tensor"  # (4,) component -> DC table slot
+    ac_slot: "torch.Tensor"  # (4,) component -> AC table slot
+    wq: "torch.Tensor"       # (n_q, 64, 64) float32 IDCT operators
+    q_of: "torch.Tensor"     # (3,) component -> wq index
+
+
+def decode_device_tables(dec, dc_slot, ac_slot, wq, q_of,
+                         device) -> DecodeTables:
+    """Turn NumPy decode tables into the port's tensors on ``device``.
+
+    ``dec`` has the ``quick``/``maxcode``/``delta``/``huffval`` arrays of
+    ``build_dec_tables_v2`` (the port's ``ops.decode.DecTables`` or the
+    JAX reference's, which are equal), ``dc_slot``/``ac_slot`` are the
+    (4,) slot maps, ``wq`` the stacked :func:`idct_operator_f32` arrays of
+    the unique quant tables and ``q_of`` each component's index into
+    them."""
+    import torch
+
+    def i32(a):
+        return torch.as_tensor(np.ascontiguousarray(a, np.int32),
+                               device=device)
+
+    return DecodeTables(
+        quick=i32(dec.quick), maxcode=i32(dec.maxcode), delta=i32(dec.delta),
+        huffval=i32(dec.huffval), dc_slot=i32(dc_slot), ac_slot=i32(ac_slot),
+        wq=torch.as_tensor(np.ascontiguousarray(wq, np.float32),
+                           device=device),
+        q_of=i32(q_of))

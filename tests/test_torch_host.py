@@ -60,7 +60,7 @@ def test_golden_decode_interleaved_and_grayscale_output():
                                                  pi) == data
     # PixelFormat.U8 == 0 is falsy: the requested grayscale output must
     # still be honoured
-    dec, dec_ref = port.Decoder(), ref.Decoder(backend="golden")
+    dec, dec_ref = port.Decoder(backend="golden"), ref.Decoder(backend="golden")
     dec.set_output_format(port.YCBCR_JPEG, port.PixelFormat.U8)
     dec_ref.set_output_format(ref.YCBCR_JPEG, ref.PixelFormat.U8)
     raw, info = dec.decode(data)
@@ -75,10 +75,14 @@ def test_cuda_device_without_card_raises():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA"):
         port.Encoder(backend="torch", device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        port.Decoder(backend="torch", device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        port.Decoder()
 
 
 def test_unknown_backends_raise():
     with pytest.raises(ValueError):
         port.Encoder(backend="jax")
     with pytest.raises(ValueError):
-        port.Decoder(backend="torch")
+        port.Decoder(backend="jax")

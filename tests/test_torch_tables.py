@@ -70,3 +70,54 @@ def test_port_encode_with_reference_tables_matches_reference(interleaved):
     got = port.Encoder(backend="torch", device="cpu")._assemble(
         plan, quant_zz, huff, bodies, sizes)
     assert got == expect
+
+
+@pytest.mark.parametrize("q", [50, 100])
+def test_decode_tables_carry_reference_tables(q):
+    """The reference's own decode tables, slots and IDCT operators, as the
+    port's tensors, decode the same coefficients and pixels as the
+    port's tables."""
+    from gpujpeg_tpu.ops.dct import idct_operator_f32 as ref_idct
+    from gpujpeg_tpu.ops.pallas_decode import build_dec_tables_v2 as ref_dec
+    from gpujpeg_tpu.stream.reader import read_image as ref_read
+    from gpujpeg_tpu.models.decoder import huffman_maps as ref_maps
+    from gpujpeg_tpu_torch.models.decoder import huffman_maps
+    from gpujpeg_tpu_torch.ops import dct, decode
+    from gpujpeg_tpu_torch.ops.pipeline import _dec_context
+    from gpujpeg_tpu_torch.stream.reader import read_image
+    from gpujpeg_tpu_torch.tables import decode_device_tables
+
+    h, w = 64, 80
+    img = make_test_rgb(h, w)
+    image = port.ImageParameters(width=w, height=h,
+                                 color_space=port.ColorSpace.RGB,
+                                 pixel_format=port.PixelFormat.PF_444_U8_P012)
+    params = port.Parameters(quality=q, restart_interval=2)
+    data = port.Encoder(backend="golden").encode(img.reshape(-1), params,
+                                                 image)
+    info = read_image(data)
+    plan, scan_data, segs = port.Decoder(
+        backend="golden")._plan_from_info(info)
+    ctx = _dec_context({}, plan, info, *huffman_maps(info), image,
+                       torch.device("cpu"))
+
+    rinfo = ref_read(data)
+    uniq, dc_slot, ac_slot = decode.table_slots(plan, *ref_maps(rinfo))
+    qts, q_of = decode.quant_slots(plan, rinfo)
+    ref_t = decode_device_tables(
+        ref_dec(uniq), dc_slot, ac_slot, np.stack([ref_idct(k) for k in qts]),
+        q_of, torch.device("cpu"))
+    for name in ("quick", "maxcode", "delta", "huffval", "dc_slot",
+                 "ac_slot", "wq", "q_of"):
+        assert torch.equal(getattr(ref_t, name), getattr(ctx.tables, name))
+
+    rows = torch.from_numpy(decode.build_rows(plan, scan_data, segs))
+    outs = []
+    for t in (ref_t, ctx.tables):
+        coeff = decode.huffman_decode(
+            rows, ctx.seg_start, ctx.seg_count, ctx.block_comp, t.quick,
+            t.maxcode, t.delta, t.huffval, t.dc_slot, t.ac_slot)
+        outs.append((coeff, dct.idct_rgb(coeff, t.wq, t.q_of, ctx.xf,
+                                         False, h, w)))
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1])
