@@ -1,21 +1,22 @@
-"""Run the PyTorch/CUDA port's encode and decode main paths on one CUDA card.
+"""Run the PyTorch/CUDA port's encode and decode paths on one CUDA card.
 
     python3 chip_smoke.py
 
 from the root of a checkout. The script needs one CUDA device, the CUDA
 toolkit (``nvcc``) and a C++ compiler; it imports nothing of JAX. Its
-phases, one line each, stop the script with a non-zero exit at the
-first failure:
+phases, one line each or more, stop the script with a non-zero exit at
+the first failure:
 
 1. the card: ``torch.cuda.is_available()`` and the name and power limit
    that ``nvidia-smi`` reports;
 2. the build of the kernels of ``gpujpeg_tpu_torch/csrc`` with ``nvcc``
    for ``sm_90a``, timed;
-3. each kernel (E1 fdct_quant, E2 huffman_blocks, E3 merge_stuff) against
-   its plain torch version on the card at 8K (7680x4320, Q75, restart
-   interval 32): E1 equal except |d| = 1 where the float64 quotient lies
-   within 1e-4 of .5 (at most 1e-6 of the coefficients), E2 and E3 fed
-   the same inputs and bit-exact; with both times;
+3. each kernel of the encode main path (E1 fdct_quant, E2
+   huffman_blocks, E3 merge_stuff) against its plain torch version on
+   the card at 8K (7680x4320 RGB 4:4:4, Q75, restart interval 32): E1
+   equal except |d| = 1 where the float64 quotient lies within 1e-4 of
+   .5 (at most 1e-6 of the coefficients), E2 and E3 fed the same inputs
+   and bit-exact; with both times and the bound;
 4. ``Encoder(backend="torch", device="cuda").encode`` end to end at that
    size with every kernel's launch count above 0, the stream decoded by
    the port's golden decoder to within 0.1 dB PSNR of the golden
@@ -24,10 +25,35 @@ first failure:
    differ only at .5 ties); a 256x256 frame encodes to the same bytes on
    the card and through the plain path on the CPU; first-call and
    steady-state encode times, and the device time of E1-E3 by CUDA
-   events.
+   events;
+5. the decode kernels (D1 huffman_decode, D2 idct_rgb) on phase 4's
+   stream against their plain versions: D1 bit-exact and equal to the
+   native golden decoder, D2 equal before the colour transform except
+   |d| = 1 at IDCT .5 ties, its colour transform exact;
+6. ``Decoder(backend="torch", device="cuda").decode`` end to end against
+   the golden decoder (within 1 before the colour transform, 0.01 dB
+   PSNR), a 256x256 stream on the card against the CPU plain path, and
+   the decode's stage times;
+7. the general encode's kernels at 8K against their plain versions: E0
+   preprocess_planes bit-exact and E1p fdct_quant_planes under E1's tie
+   rule on (a) I420 video in, YCbCr 4:2:0 interleaved, Q75, restart
+   interval 4 (777,600 blocks in 32,400 segments) and (c) RGB in, 4:2:0
+   non-interleaved, Q75, interval 32; E2 and E3 bit-exact on (a)'s
+   coefficients; E1p on E0's planes of phase 3's frame equal to E1 bit
+   for bit; kernel and plain times on (a);
+8. ``Encoder.encode`` end to end at 8K on (a), (c) and (d) RGB 4:4:4
+   Q100 interval 32: each kernel of the route launched once per encode,
+   each stream equal to the golden encoder's in every segment without a
+   .5 tie and within 0.1 dB of its golden-decoded PSNR; first-call and
+   steady times and (a)'s stage breakdown;
+9. every colour config (the six of the JAX package's
+   tests/test_quality.py, YUV -> BT.601 and RGB -> RGB) at 17x13 and
+   200x136, interleaved or not, encoded on the card and through the CPU
+   plain path to equal streams (outside .5 ties).
 
-The line before the last is a JSON object with every kernel's numbers;
-the last line is ``{"ok": true, "device": {...}}``.
+The line before the last is a JSON object with every kernel's numbers
+(its time, plain time, bound and launches on its path); the last line is
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -45,6 +71,14 @@ TIE_EPS = 1e-4          # |frac(q64) - .5| below which rounding may differ
 MAX_TIE_SHARE = 1e-6    # E1 kernel vs plain: share of tie differences
 PSNR_DB = 0.1
 REPLACES = "gpujpeg_tpu/ops/entropy_v2.py:955"
+REPLACES_E2 = ("gpujpeg_tpu/ops/entropy_v2.py:955 (stage 1) + "
+               "gpujpeg_tpu/ops/entropy_v2.py:856 (stage 1) + "
+               "gpujpeg_tpu/ops/entropy_v2.py:572")
+REPLACES_E3 = ("gpujpeg_tpu/ops/entropy_v2.py:955 (merge, stuffing, RST) + "
+               "gpujpeg_tpu/ops/entropy_v2.py:1512 + "
+               "gpujpeg_tpu/ops/entropy_v2.py:1317 + "
+               "gpujpeg_tpu/ops/entropy_v2.py:1164 + "
+               "gpujpeg_tpu/ops/entropy_v2.py:1603")
 D2_TIE_EPS = 1e-3        # |frac(y64) - .5| below which IDCT rounding may differ
 D2_MAX_TIE_SHARE = 1e-5  # D2 kernel vs plain: share of tie differences
 DEC_PSNR_DB = 0.01
@@ -184,28 +218,35 @@ def phase_kernels(ctx, rgb) -> list[dict]:
     if meta_bad or byte_bad:
         fail("E3 disagrees with its plain version")
 
+    words_used = used_word_bytes(bits)
     rows = []
-    for name, src, kern, plain, args, errv in (
-            ("fdct_quant", "fdct_quant.cu", dct.fdct_quant,
-             dct.fdct_quant_plain, e1, err1),
-            ("huffman_blocks", "huffman_blocks.cu", entropy.huffman_blocks,
-             entropy.huffman_blocks_plain, e2, 0),
-            ("merge_stuff", "merge_stuff.cu", entropy.merge_stuff,
-             entropy.merge_stuff_plain, e3, 0)):
+    for name, src, repl, kern, plain, args, errv, bnd in (
+            ("fdct_quant", "fdct_quant.cu", REPLACES, dct.fdct_quant,
+             dct.fdct_quant_plain, e1, err1,
+             bound(nbytes(*e1[:-1], coeff), 2 * 64 * 64 * coeff.shape[0])),
+            ("huffman_blocks", "huffman_blocks.cu", REPLACES_E2,
+             entropy.huffman_blocks, entropy.huffman_blocks_plain, e2, 0,
+             bound(nbytes(*e2, bits) + words_used)),
+            ("merge_stuff", "merge_stuff.cu", REPLACES_E3,
+             entropy.merge_stuff, entropy.merge_stuff_plain, e3, 0,
+             bound(words_used + nbytes(*e3[1:-1], out_len, seg_bits, n_ff)
+                   + int(out_len.sum())))):
         ms = cuda_ms(lambda: kern(*args), 10)
         plain_ms = cuda_ms(lambda: plain(*args), 2)
-        print(f"phase 3: {name} {ms:.4f} ms, plain {plain_ms:.4f} ms",
+        print(f"phase 3: {name} {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})",
               flush=True)
         rows.append({"name": name, "route": "cuda",
                      "source": f"gpujpeg_tpu_torch/csrc/{src}",
-                     "replaces": REPLACES, "launches": 0,
-                     "max_abs_err": errv, "ms": ms, "plain_ms": plain_ms})
+                     "replaces": repl, "launches": 0,
+                     "max_abs_err": errv, "ms": ms, "plain_ms": plain_ms,
+                     **bnd, "library_ms": None})
     return rows
 
 
 def stage_ms(enc, ctx, raw, quant_zz, huff) -> np.ndarray:
     """Host-clock ms of the encode's stages, each ended by a sync."""
-    from gpujpeg_tpu_torch.ops.pipeline import _split_scan_bodies, upload_rgb
+    from gpujpeg_tpu_torch.ops.pipeline import _split_scan_bodies
 
     def sync():
         if ctx.device.type == "cuda":
@@ -213,10 +254,10 @@ def stage_ms(enc, ctx, raw, quant_zz, huff) -> np.ndarray:
 
     plan = ctx.plan
     t = [time.perf_counter()]
-    rgb = upload_rgb(raw, plan, ctx.device)
+    x = ctx.upload(raw)
     sync()
     t.append(time.perf_counter())
-    out, out_len, _, _ = ctx.run(rgb)
+    out, out_len, _, _ = ctx.run(x)
     sync()
     t.append(time.perf_counter())
     bodies, sizes = _split_scan_bodies(plan, ctx, out, out_len.cpu().numpy())
@@ -231,14 +272,65 @@ def segment_bytes(info) -> list[bytes]:
             for lo, hi in s.segments]
 
 
+#: relative error bound of a 64-term float32 dot product summed in any
+#: order, with the float32 rounding of its operator and the bias
+#: subtraction: (64 + 2) * 2**-24 < 2**-17
+F32_DOT_REL = 2.0 ** -17
+
+
+def golden_quotients(raw, image, plan, quant_zz):
+    """(y64, eps) in scan order, each (NB, 64) float64: the quantised DCT
+    values by the golden coder's host preprocess and float64 DCT (the
+    golden coefficients are their ``rint``), and a bound on the error of
+    any float32 evaluation of them, ``F32_DOT_REL * (x @ |M| + |b|)``:
+    the width of the .5 tie in which a float32 DCT may round either
+    way."""
+    from gpujpeg_tpu_torch.ops.blocks import plane_to_blocks
+    from gpujpeg_tpu_torch.ops.preprocess import preprocess
+    from gpujpeg_tpu_torch.tables import fdct_quant_matrix
+    planes = preprocess(raw, image, plan, np)
+    y64, eps = [], []
+    for c in plan.components:
+        M, b = fdct_quant_matrix(quant_zz[c.quant_table_index])
+        x = plane_to_blocks(planes[c.index], np).astype(np.float64)
+        y64.append(x @ M - b)
+        eps.append(F32_DOT_REL * (x @ np.abs(M) + np.abs(b)))
+    return (np.concatenate(y64)[plan.block_plane_idx],
+            np.concatenate(eps)[plan.block_plane_idx])
+
+
+def tie_segments(plan, coeff_a, coeff_b, y64, what: str, eps=TIE_EPS):
+    """(coefficients that differ, segments that hold one) between two
+    (NB, 64) scan-order coefficient arrays; fails unless every
+    difference is 1 at a .5 tie of the float64 value ``y64``: within
+    ``eps`` (a number, or an (NB, 64) array of bounds) of .5."""
+    diff = coeff_a != coeff_b
+    if diff.any():
+        far = np.abs(np.abs(y64[diff] - np.floor(y64[diff])) - 0.5)
+        if np.abs(coeff_a - coeff_b).max() > 1 \
+                or (far > (eps[diff] if np.ndim(eps) else eps)).any():
+            fail(f"{what}: coefficients differ beyond .5 ties")
+    return int(diff.sum()), set(
+        plan.block_segment[np.nonzero(diff.any(axis=1))[0]].tolist())
+
+
+def differing_segments(plan, data_a: bytes, data_b: bytes,
+                       skip: set) -> list[int]:
+    """Restart segments outside ``skip`` whose bytes differ between two
+    streams of one plan; fails if the segment counts differ."""
+    from gpujpeg_tpu_torch.stream.reader import read_image
+    seg_a = segment_bytes(read_image(data_a))
+    seg_b = segment_bytes(read_image(data_b))
+    if len(seg_a) != len(seg_b) or len(seg_a) != plan.n_segments:
+        fail("segment counts differ between two streams of one plan")
+    return [s for s in range(plan.n_segments)
+            if s not in skip and seg_a[s] != seg_b[s]]
+
+
 def phase_encode(gj, img, params, image, plan, card: str,
                  device: str = "cuda") -> dict:
     """Phase 4: the public encode end to end, checked against golden."""
     from gpujpeg_tpu_torch.ops import dct, entropy
-    from gpujpeg_tpu_torch.ops.blocks import plane_to_blocks
-    from gpujpeg_tpu_torch.ops.preprocess import preprocess
-    from gpujpeg_tpu_torch.stream.reader import read_image
-    from gpujpeg_tpu_torch.tables import fdct_quant_matrix
 
     kernels = (dct.fdct_quant, entropy.huffman_blocks, entropy.merge_stuff)
     enc = gj.Encoder(backend="torch", device=device)
@@ -274,35 +366,15 @@ def phase_encode(gj, img, params, image, plan, card: str,
         psnr(out_g.reshape(img.shape), img)
 
     # coefficients: the kernel's against the float64 golden DCT
-    planes = preprocess(raw, image, plan, np)
-    coeff_g, y64 = [], []
-    for c in plan.components:
-        M, b = fdct_quant_matrix(quant_zz[c.quant_table_index])
-        y = plane_to_blocks(planes[c.index], np).astype(np.float64) @ M - b
-        y64.append(y)
-        coeff_g.append(np.rint(y).astype(np.int32))
-    coeff_g = np.concatenate(coeff_g)[plan.block_plane_idx]
-    y64 = np.concatenate(y64)[plan.block_plane_idx]
-    t = ctx.tables
-    coeff_k = dct.fdct_quant(rgb, t.dct, t.bias, ctx.qdiv, ctx.xf,
-                             ctx.interleaved).cpu().numpy()
-    diff = coeff_k != coeff_g
-    if diff.any():
-        far = np.abs(np.abs(y64[diff] - np.floor(y64[diff])) - 0.5).max()
-        if np.abs(coeff_k - coeff_g).max() > 1 or far > TIE_EPS:
-            fail("kernel coefficients differ from golden beyond .5 ties")
-    tie_segs = set(plan.block_segment[np.nonzero(diff.any(axis=1))[0]]
-                   .tolist())
-    seg_t, seg_g = segment_bytes(read_image(data)), \
-        segment_bytes(read_image(gold))
-    if len(seg_t) != len(seg_g) or len(seg_t) != plan.n_segments:
-        fail("segment counts differ from the golden stream")
-    bad = [s for s in range(plan.n_segments)
-           if s not in tie_segs and seg_t[s] != seg_g[s]]
+    y64, _ = golden_quotients(raw, image, plan, quant_zz)
+    coeff_k = ctx.coefficients(rgb).cpu().numpy()
+    n_ties, tie_segs = tie_segments(plan, coeff_k, np.rint(y64), y64,
+                                    "kernel coefficients vs golden")
+    bad = differing_segments(plan, data, gold, tie_segs)
     print(f"phase 4: encode {image.width}x{image.height} Q{params.quality} ri="
           f"{params.restart_interval}: {len(data)} bytes, launches "
           f"{launches}; PSNR {p_t:.4f} dB vs golden {p_g:.4f} dB; "
-          f"{int(diff.sum())} coefficients at .5 ties in {len(tie_segs)} "
+          f"{n_ties} coefficients at .5 ties in {len(tie_segs)} "
           f"segments; {len(bad)} of the other "
           f"{plan.n_segments - len(tie_segs)} segments differ from golden",
           flush=True)
@@ -434,21 +506,24 @@ def phase_decode_kernels(gj, data: bytes, card: str) -> list[dict]:
         fail("D2's inverse colour transform is not exact")
 
     rows_out = []
-    for name, src, repl, kern, plain, args, errv, plain_ms in (
+    for name, src, repl, kern, plain, args, errv, plain_ms, bnd in (
             ("huffman_decode", "huffman_decode.cu", REPLACES_D1,
-             decode.huffman_decode, None, d1, err1, d1_plain_ms),
+             decode.huffman_decode, None, d1, err1, d1_plain_ms,
+             bound(nbytes(*d1, coeff))),
             ("idct_rgb", "idct_rgb.cu", REPLACES_D2, dct.idct_rgb,
-             dct.idct_rgb_plain, d2, err2, None)):
+             dct.idct_rgb_plain, d2, err2, None,
+             bound(nbytes(*d2[:4], rgb), 2 * 64 * 64 * coeff.shape[0]))):
         ms = cuda_ms(lambda: kern(*args), 10)
         if plain is not None:
             plain_ms = cuda_ms(lambda: plain(*args), 1)
         print(f"phase 5: {card}: {name} {ms:.4f} ms, plain {plain_ms:.4f} "
-              f"ms", flush=True)
+              f"ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})",
+              flush=True)
         rows_out.append({"name": name, "route": "cuda",
                          "source": f"gpujpeg_tpu_torch/csrc/{src}",
                          "replaces": repl, "launches": 0,
                          "max_abs_err": errv, "ms": ms,
-                         "plain_ms": plain_ms})
+                         "plain_ms": plain_ms, **bnd, "library_ms": None})
     return rows_out
 
 
@@ -594,6 +669,407 @@ def phase_decode(gj, img, data: bytes, card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Bounds: the least time the card could take for a kernel's work
+# ---------------------------------------------------------------------------
+
+#: one H100 SXM at its 700 W limit (NVIDIA's data sheet): device memory
+#: bytes/s and float32 FLOP/s outside the tensor cores
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_S = 67e12
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(bytes_moved: int, flops: int = 0) -> dict:
+    """``bound_ms`` and ``bound_by`` of work that moves ``bytes_moved``
+    (each input read once, each output written once) and does ``flops``
+    float32 operations (an FMA counts two). Integer and bit operations
+    have no peak in the data sheet's table and are not counted."""
+    t_b = bytes_moved / PEAK_BYTES_S
+    t_o = flops / PEAK_F32_S
+    return {"bound_ms": max(t_b, t_o) * 1e3,
+            "bound_by": "operations" if t_o > t_b else "bytes"}
+
+
+def used_word_bytes(bits: torch.Tensor) -> int:
+    """Bytes of E2's block strings that the data fills (the rest of each
+    worst-case scratch row is neither written usefully nor read)."""
+    return int(((bits.long() + 31) // 32).sum()) * 4
+
+
+# ---------------------------------------------------------------------------
+# Phases 7-9: the general encode (E0 + E1p)
+# ---------------------------------------------------------------------------
+
+REPLACES_E0 = "gpujpeg_tpu/ops/preprocess.py:150"
+REPLACES_E1P = ("gpujpeg_tpu/ops/entropy_v2.py:856 (DCT+quant half) + "
+                "gpujpeg_tpu/ops/jax_pipeline.py:226")
+#: phase 9's colour configs: (pixel format name, image colour space name,
+#: JPEG colour space name, sampling); the six of the JAX package's
+#: tests/test_quality.py, a pair of two non-RGB spaces and RGB -> RGB
+SMALL_CONFIGS = [
+    ("PF_444_U8_P012", "RGB", "YCBCR_BT601_256LVLS", 444),
+    ("PF_444_U8_P012A", "RGB", "YCBCR_BT601_256LVLS", 444),
+    ("PF_444_U8_P0P1P2", "YCBCR_BT601_256LVLS", "YCBCR_BT601_256LVLS", 444),
+    ("PF_422_U8_P1020", "YCBCR_BT709", "YCBCR_BT601_256LVLS", 422),
+    ("PF_420_U8_P0P1P2", "YCBCR_BT601_256LVLS", "YCBCR_BT601_256LVLS", 420),
+    ("PF_422_U8_P0P1P2", "YCBCR_BT601", "YCBCR_BT601_256LVLS", 422),
+    ("PF_444_U8_P012", "YUV", "YCBCR_BT601", 444),
+    ("PF_444_U8_P012", "RGB", "RGB", 444),
+]
+
+
+def make_raw(gj, rgb: np.ndarray, image) -> np.ndarray:
+    """An RGB frame in ``image``'s colour space and pixel format, by the
+    port's host transform and packer (alpha 255 for 4 components)."""
+    from gpujpeg_tpu_torch.ops.colorspace import transform
+    from gpujpeg_tpu_torch.ops.preprocess import pack_raw
+    H, W, _ = rgb.shape
+    chans = transform([rgb[:, :, c].astype(np.int32) for c in range(3)],
+                      gj.ColorSpace.RGB, image.color_space, np)
+    if image.comp_count == 4:
+        chans = chans + [np.full((H, W), 255, np.int32)]
+    return pack_raw(chans, image, np)
+
+
+def general_configs(gj, img: np.ndarray) -> dict:
+    """Phase 7's and 8's 8K configurations: name -> (raw, params, image).
+    (a) I420 video in, YCbCr 4:2:0 interleaved, Q75, the suggested pow2
+    restart interval; (c) RGB in, 4:2:0 non-interleaved, Q75, ri 32;
+    (d) RGB in, 4:4:4, Q100, ri 32 (the E1 route)."""
+    i420 = gj.ImageParameters(width=W8K, height=H8K,
+                              color_space=gj.ColorSpace.YCBCR_BT709,
+                              pixel_format=gj.PixelFormat.PF_420_U8_P0P1P2)
+    ri = gj.suggest_restart_interval(i420, True, True, pow2=True)
+    if ri != 4:
+        fail(f"(a): suggested restart interval {ri}, expected 4")
+    rgb = gj.ImageParameters(width=W8K, height=H8K,
+                             color_space=gj.ColorSpace.RGB,
+                             pixel_format=gj.PixelFormat.PF_444_U8_P012)
+    return {
+        "a": (make_raw(gj, img, i420),
+              gj.Parameters(quality=QUALITY, restart_interval=ri,
+                            interleaved=True).with_chroma_subsampling(420),
+              i420),
+        "c": (img.reshape(-1),
+              gj.Parameters(quality=QUALITY, restart_interval=32)
+              .with_chroma_subsampling(420), rgb),
+        "d": (img.reshape(-1), gj.Parameters(quality=100,
+                                             restart_interval=32), rgb),
+    }
+
+
+def context(gj, params, image, device="cuda"):
+    from gpujpeg_tpu_torch.ops.pipeline import _EncContext
+    from gpujpeg_tpu_torch.plan import make_plan
+    quant_zz, huff = gj.Encoder(backend="golden")._tables(params)
+    return _EncContext(make_plan(params, image), quant_zz, huff,
+                       torch.device(device))
+
+
+def e1p_ties(ctx, planes: torch.Tensor, diff_mask) -> float:
+    """Largest |frac(q64) - .5| over the coefficients where E1p and its
+    plain version differ (q64: the float64 quotient of E0's planes)."""
+    from gpujpeg_tpu_torch.ops.blocks import plane_to_blocks
+    from gpujpeg_tpu_torch.tables import dct_zigzag_operator
+    rows, cols = torch.nonzero(diff_mask, as_tuple=True)
+    if rows.numel() == 0:
+        return 0.0
+    g = ctx.planes
+    blk = g.blk.tolist()
+    ends = [r[0] for r in blk[1:]] + [planes.numel()]
+    blocks = torch.cat([plane_to_blocks(planes[off:end].view(-1, dw))
+                        for (off, dw, _, _), end in zip(blk, ends)])
+    pb = g.block_plane_idx[rows].long()
+    first = torch.tensor([r[2] for r in blk], device=planes.device)
+    comp = torch.searchsorted(first, pb, right=True) - 1
+    D64, bias64 = dct_zigzag_operator()
+    D = torch.as_tensor(D64, device=planes.device)
+    bias = torch.as_tensor(bias64, device=planes.device)
+    y = (blocks[pb].double() @ D - bias).gather(1, cols[:, None])[:, 0]
+    yq = y / ctx.qdiv.double()[comp, cols]
+    return float((yq - torch.floor(yq) - 0.5).abs().max())
+
+
+def phase_general_kernels(gj, img: np.ndarray, configs: dict,
+                          card: str) -> list[dict]:
+    """Phase 7: E0 and E1p against their plain versions at 8K on (a) and
+    (c), E2 and E3 on (a)'s coefficients, and E1p against E1 on phase
+    3's 4:4:4 frame; with kernel and plain times on (a)."""
+    from gpujpeg_tpu_torch.ops import dct, entropy, preprocess as pre
+    rows_out = []
+    for name in ("a", "c"):
+        raw_h, params, image = configs[name]
+        ctx = context(gj, params, image)
+        g, t = ctx.planes, ctx.tables
+        raw = pre.upload_raw(raw_h, image, ctx.device)
+        e0 = (raw, g)
+        planes = pre.preprocess_planes(*e0)
+        planes_p = pre.preprocess_planes_plain(*e0)
+        e0_bad = int((planes != planes_p).sum())
+        e1p = (planes, t.dct, t.bias, ctx.qdiv, g.blk, g.block_plane_idx)
+        coeff = dct.fdct_quant_planes(*e1p)
+        coeff_p = dct.fdct_quant_planes_plain(*e1p)
+        d = (coeff - coeff_p).abs()
+        n_diff, err = int((d != 0).sum()), int(d.max())
+        tie = e1p_ties(ctx, planes, d != 0)
+        plan = ctx.plan
+        print(f"phase 7 ({name}): {image.width}x{image.height} "
+              f"{gj.PixelFormat(image.pixel_format).name} -> "
+              f"{len(plan.components)} planes "
+              f"{[(c.data_width, c.data_height) for c in plan.components]}, "
+              f"{plan.n_blocks} blocks in {plan.n_segments} segments: E0 "
+              f"{e0_bad} of {planes.numel()} bytes differ from the plain "
+              f"version; E1p {n_diff} of {coeff.numel()} coefficients "
+              f"differ, max |d| {err}, farthest from a .5 tie {tie:.3g}",
+              flush=True)
+        if e0_bad:
+            fail(f"({name}): E0 disagrees with its plain version")
+        if err > 1 or n_diff > MAX_TIE_SHARE * coeff.numel() \
+                or tie > TIE_EPS:
+            fail(f"({name}): E1p disagrees with its plain version beyond "
+                 ".5 ties")
+        if name != "a":
+            continue
+        geo = ctx.geo
+        e2 = (coeff, geo.dc_pred, geo.block_cls, t.ac512, t.dc64)
+        words, bits = entropy.huffman_blocks(*e2)
+        words_p, bits_p = entropy.huffman_blocks_plain(*e2)
+        used = (torch.arange(words.shape[1], device=words.device)[None, :]
+                < ((bits + 31) // 32)[:, None])
+        e2_bad = int(((words != words_p) & used).sum()) \
+            + int((bits != bits_p).sum())
+        del words_p, bits_p, used
+        e3 = (words, bits, geo.seg_start, geo.seg_count, geo.rst,
+              geo.has_rst, geo.cap_out)
+        out, out_len, seg_bits, n_ff = entropy.merge_stuff(*e3)
+        out_p, out_len_p, seg_bits_p, n_ff_p = entropy.merge_stuff_plain(*e3)
+        valid = (torch.arange(geo.cap_out, device=out.device)[None, :]
+                 < out_len_p[:, None])
+        e3_bad = int(((out_len != out_len_p) | (seg_bits != seg_bits_p)
+                      | (n_ff != n_ff_p)).sum()) \
+            + int(((out != out_p) & valid).sum())
+        print(f"phase 7 (a): E2 {e2_bad} bit lengths and string words, E3 "
+              f"{e3_bad} segment lengths and bytes differ from the plain "
+              f"versions ({plan.max_seg_block_count} blocks per segment, "
+              f"{len(plan.components)} components interleaved, "
+              f"{int(out_len.sum())} bytes)", flush=True)
+        if e2_bad or e3_bad:
+            fail("(a): E2 or E3 disagrees with its plain version")
+        del out_p, valid
+        for kname, src, repl, kern, plain, args, errv, bnd in (
+                ("preprocess_planes", "preprocess.cu", REPLACES_E0,
+                 pre.preprocess_planes, pre.preprocess_planes_plain, e0, 0,
+                 bound(nbytes(raw, g.comp, g.src, g.xf, planes))),
+                ("fdct_quant_planes", "fdct_quant_planes.cu", REPLACES_E1P,
+                 dct.fdct_quant_planes, dct.fdct_quant_planes_plain, e1p,
+                 err, bound(nbytes(*e1p[:-2], g.blk, g.block_plane_idx,
+                                   coeff), 2 * 64 * 64 * plan.n_blocks))):
+            ms = cuda_ms(lambda: kern(*args), 10)
+            plain_ms = cuda_ms(lambda: plain(*args), 2)
+            print(f"phase 7 (a): {card}: {kname} {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
+                  f"({bnd['bound_by']})", flush=True)
+            rows_out.append({"name": kname, "route": "cuda",
+                             "source": f"gpujpeg_tpu_torch/csrc/{src}",
+                             "replaces": repl, "launches": 0,
+                             "max_abs_err": errv, "ms": ms,
+                             "plain_ms": plain_ms, **bnd,
+                             "library_ms": None})
+        words_used = used_word_bytes(bits)
+        for kname, kern, args, bnd in (
+                ("huffman_blocks", entropy.huffman_blocks, e2,
+                 bound(nbytes(*e2, bits) + words_used)),
+                ("merge_stuff", entropy.merge_stuff, e3,
+                 bound(words_used + nbytes(*e3[1:-1], out_len, seg_bits, n_ff)
+                       + int(out_len.sum())))):
+            print(f"phase 7 (a): {card}: {kname} on (a) "
+                  f"{cuda_ms(lambda: kern(*args), 10):.4f} ms, bound "
+                  f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']})", flush=True)
+        del ctx, raw, planes, planes_p, coeff, coeff_p, words, bits, out
+        torch.cuda.empty_cache()
+
+    # E1p on E0's planes of phase 3's 4:4:4 frame equals E1 exactly
+    params, image, _ = setup(gj, H8K, W8K)
+    ctx = context(gj, params, image)
+    if not ctx.rgb_route:
+        fail("phase 3's plan does not take the E1 route")
+    by_e1 = ctx.coefficients(ctx.upload(img))
+    by_e1p = ctx.coefficients_planes(pre.upload_raw(img, image, ctx.device))
+    n_bad = int((by_e1 != by_e1p).sum())
+    print(f"phase 7: E1p on E0's planes of phase 3's frame: {n_bad} of "
+          f"{by_e1.numel()} coefficients differ from E1", flush=True)
+    if n_bad:
+        fail("E1p on 4:4:4 RGB differs from E1")
+    del ctx, by_e1, by_e1p
+    torch.cuda.empty_cache()
+    return rows_out
+
+
+def golden_check(gj, ctx, raw, params, image, data: bytes, what: str):
+    """The stream against the golden coder: equal to the golden entropy
+    coder's stream of the kernels' own coefficients, byte-equal to the
+    golden encoder's in every segment without a .5 tie, golden-decoded
+    PSNR (against the raw input, in its own format) within PSNR_DB.
+    Returns a summary string."""
+    from gpujpeg_tpu_torch.native import encode_segments_native
+    from gpujpeg_tpu_torch.types import HuffmanType
+    golden = gj.Encoder(backend="golden")
+    quant_zz, huff = golden._tables(params)
+    plan = ctx.plan
+    gold = golden.encode(raw, params, image)
+    y64, eps = golden_quotients(raw, image, plan, quant_zz)
+    coeff_k = ctx.coefficients(ctx.upload(raw)).cpu().numpy()
+    n_ties, tie_segs = tie_segments(plan, coeff_k, np.rint(y64), y64,
+                                    f"{what} vs golden", eps)
+    del y64, eps
+    segs = encode_segments_native(
+        plan, coeff_k,
+        [huff[(c.comp_type, HuffmanType.DC)] for c in plan.components],
+        [huff[(c.comp_type, HuffmanType.AC)] for c in plan.components])
+    if segs is None:
+        fail("the native golden entropy coder did not build")
+    if golden._assemble(plan, quant_zz, huff,
+                        *golden._to_scan_bodies(plan, segs)) != data:
+        fail(f"{what}: the stream differs from the golden entropy coder's "
+             "on the kernels' own coefficients")
+    del coeff_k, segs
+    bad = differing_segments(plan, data, gold, tie_segs)
+    dec = gj.Decoder(backend="golden")
+    dec.set_output_format(image.color_space, image.pixel_format)
+    ref = np.asarray(raw, np.uint8).reshape(-1)
+    p_t = psnr(dec.decode(data)[0].reshape(-1), ref)
+    p_g = psnr(dec.decode(gold)[0].reshape(-1), ref)
+    msg = (f"{len(data)} bytes, equal to the golden entropy coder's on "
+           f"the kernels' coefficients; PSNR {p_t:.4f} dB vs golden "
+           f"{p_g:.4f} dB; against the golden encoder "
+           f"{n_ties} coefficients at .5 ties in {len(tie_segs)} segments; "
+           f"{len(bad)} of the other {plan.n_segments - len(tie_segs)} "
+           f"segments differ from golden")
+    if bad:
+        fail(f"{what}: segments {bad[:10]} differ from the golden stream")
+    if abs(p_t - p_g) > PSNR_DB:
+        fail(f"{what}: PSNR differs from the golden stream's by more than "
+             "0.1 dB")
+    return msg
+
+
+def phase_general_encode(gj, configs: dict, card: str) -> dict:
+    """Phase 8: ``Encoder.encode`` end to end at 8K on (a), (c) and (d):
+    each kernel of the route launched once per encode, the stream against
+    golden, first-call and steady times, (a)'s stage breakdown. Returns
+    (a)'s launch counts."""
+    from gpujpeg_tpu_torch.ops import dct, entropy, preprocess as pre
+    kernels = (pre.preprocess_planes, dct.fdct_quant_planes, dct.fdct_quant,
+               entropy.huffman_blocks, entropy.merge_stuff)
+    launches_a = None
+    for name in ("a", "c", "d"):
+        raw, params, image = configs[name]
+        enc = gj.Encoder(backend="torch", device="cuda")
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        data = enc.encode(raw, params, image)
+        first_ms = (time.perf_counter() - t0) * 1e3
+        launches = {k.__name__: k.launches for k in kernels}
+        ctx = next(iter(enc._contexts.values()))
+        route = ((dct.fdct_quant,) if ctx.rgb_route else
+                 (pre.preprocess_planes, dct.fdct_quant_planes)) + (
+            entropy.huffman_blocks, entropy.merge_stuff)
+        want = {k.__name__: int(k in route) for k in kernels}
+        if launches != want:
+            fail(f"({name}): launches {launches}, expected {want}")
+        if name == "a":
+            launches_a = launches
+        steady = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            again = enc.encode(raw, params, image)
+            steady.append((time.perf_counter() - t0) * 1e3)
+        if again != data:
+            fail(f"({name}): two encodes of one frame differ")
+        x = ctx.upload(raw)
+        device_ms = cuda_ms(lambda: ctx.run(x), 10)
+        del x
+        summary = golden_check(gj, ctx, raw, params, image, data,
+                               f"({name})")
+        plan = ctx.plan
+        print(f"phase 8 ({name}): encode {image.width}x{image.height} "
+              f"{gj.PixelFormat(image.pixel_format).name} "
+              f"{gj.ColorSpace(image.color_space).name} -> "
+              f"{len(plan.components)} components, sampling "
+              f"{[str(c.sampling) for c in plan.components]}, interleaved "
+              f"{params.interleaved}, Q{params.quality} ri="
+              f"{params.restart_interval}, {plan.n_segments} segments: "
+              f"launches {launches}; {summary}", flush=True)
+        print(f"phase 8 ({name}): {card}: encode first call {first_ms:.3f} "
+              f"ms, steady {float(np.median(steady)):.3f} ms (median of 5, "
+              f"host clock); kernels device {device_ms:.4f} ms (CUDA "
+              f"events)", flush=True)
+        if name == "a":
+            quant_zz, huff = enc._tables(params)
+            st = np.median([stage_ms(enc, ctx, raw, quant_zz, huff)
+                            for _ in range(3)], axis=0)
+            print(f"phase 8 (a): {card}: encode stages (host clock, median "
+                  f"of 3): upload {st[0]:.3f} ms, E0-E3 {st[1]:.3f} ms, "
+                  f"length sync + compaction + D2H {st[2]:.3f} ms, stream "
+                  f"assembly {st[3]:.3f} ms", flush=True)
+        del enc, ctx
+        torch.cuda.empty_cache()
+    return launches_a
+
+
+def phase_small(gj) -> None:
+    """Phase 9: every colour config at 17x13 and 200x136, interleaved or
+    not, encoded on the card and through the CPU plain path: equal
+    streams, or equal in every segment without a .5 tie."""
+    n = 0
+    for pf_name, cs_name, csi_name, sub in SMALL_CONFIGS:
+        pf = gj.PixelFormat[pf_name]
+        for (w, h), interleaved in ((s, i) for s in ((17, 13), (200, 136))
+                                    for i in (False, True)):
+            if pf == gj.PixelFormat.PF_422_U8_P1020:
+                w += w % 2
+            image = gj.ImageParameters(width=w, height=h,
+                                       color_space=gj.ColorSpace[cs_name],
+                                       pixel_format=pf)
+            params = gj.Parameters(
+                quality=85, restart_interval=2, interleaved=interleaved,
+                color_space_internal=gj.ColorSpace[csi_name]
+            ).with_chroma_subsampling(sub)
+            raw = make_raw(gj, make_image(h, w), image)
+            a = gj.Encoder(backend="torch", device="cuda").encode(
+                raw, params, image)
+            b = gj.Encoder(backend="torch", device="cpu").encode(
+                raw, params, image)
+            n += 1
+            if a == b:
+                continue
+            ca, cb = context(gj, params, image), \
+                context(gj, params, image, "cpu")
+            quant_zz, _ = gj.Encoder(backend="golden")._tables(params)
+            y64, eps = golden_quotients(raw, image, ca.plan, quant_zz)
+            n_ties, tie_segs = tie_segments(
+                ca.plan, ca.coefficients(ca.upload(raw)).cpu().numpy(),
+                cb.coefficients(cb.upload(raw)).numpy(), y64,
+                f"{pf_name} {w}x{h} card vs CPU", eps)
+            bad = differing_segments(ca.plan, a, b, tie_segs)
+            print(f"phase 9: {pf_name} {cs_name}->{csi_name} {w}x{h} "
+                  f"interleaved {interleaved}: the card's stream differs "
+                  f"from the CPU plain path's in {len(tie_segs)} segments "
+                  f"with {n_ties} coefficients at .5 ties, {len(bad)} "
+                  f"others", flush=True)
+            if bad:
+                fail("a small stream on the card differs from the CPU plain "
+                     "path's beyond .5 ties")
+    print(f"phase 9: {n} small encodes ({len(SMALL_CONFIGS)} colour configs "
+          f"x 17x13, 200x136 x interleaved or not) equal the CPU plain "
+          f"path's streams outside .5 ties", flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a "
@@ -632,6 +1108,14 @@ def main() -> None:
     rows += phase_decode_kernels(gj, data, card)
     torch.cuda.empty_cache()
     launches.update(phase_decode(gj, img, data, card))
+    torch.cuda.empty_cache()
+
+    configs = general_configs(gj, img)
+    rows += phase_general_kernels(gj, img, configs, card)
+    launches_a = phase_general_encode(gj, configs, card)
+    launches.update({k: launches_a[k] for k in ("preprocess_planes",
+                                                "fdct_quant_planes")})
+    phase_small(gj)
     for r in rows:
         r["launches"] = launches[r["name"]]
     print(json.dumps({"kernels": rows}), flush=True)

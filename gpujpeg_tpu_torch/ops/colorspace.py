@@ -4,8 +4,10 @@ Exact behavioral parity with the reference's 8-bit fixed-point matrices and
 rounding (reference: src/gpujpeg_colorspace.h:52-104 for the arithmetic,
 :215-351 for the matrices). The functions take an array module
 ``xp``; the port calls them with ``xp=numpy`` on the host golden path. The
-device encode applies the same arithmetic inside its DCT kernel
-(``ops/rgbpack.py``).
+device encode applies the same arithmetic inside its kernels: E1 for one
+forward matrix from RGB (``ops/rgbpack.py``), E0 for any pair
+(:func:`pair_consts`, ``csrc/preprocess.cu``), whose plain torch form is
+:func:`apply_pair`.
 
 Semantics replicated exactly:
 
@@ -20,6 +22,7 @@ Semantics replicated exactly:
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..types import ColorSpace
 
@@ -97,3 +100,54 @@ def transform(channels, cs_from: ColorSpace, cs_to: ColorSpace, xp=np):
         rgb = _transform_from(channels, cs_from, xp)
         out = _transform_to(rgb, cs_to, xp)
     return out + alpha
+
+
+#: length of :func:`pair_consts`: (flag, m9, base3) of the inverse, then
+#: of the forward matrix
+PAIR_CONSTS = 26
+
+
+def pair_consts(cs_from, cs_to, n_channels: int) -> tuple[int, ...]:
+    """The integer constants of :func:`transform` for one colour pair, as
+    the E0 kernel takes them: ``(1, m9, base3)`` of the inverse matrix
+    to RGB, then of the forward matrix from RGB, each ``(0,) * 13`` where
+    that step is absent. Both steps are absent for the identity (equal
+    spaces, NONE, or fewer than 3 channels); a pair of two non-RGB
+    spaces takes both, through RGB with the clamp between."""
+    cs_from, cs_to = ColorSpace(cs_from), ColorSpace(cs_to)
+    inv = fwd = None
+    if not (cs_from in (cs_to, ColorSpace.NONE) or cs_to == ColorSpace.NONE
+            or n_channels < 3):
+        if cs_from != ColorSpace.RGB:
+            inv = MATRIX_FROM[cs_from]
+        if cs_to != ColorSpace.RGB:
+            fwd = MATRIX_TO[cs_to]
+    out: list[int] = []
+    for step in (inv, fwd):
+        out += [0] * 13 if step is None else [1, *step[0], *step[1]]
+    return tuple(int(v) for v in out)
+
+
+def apply_pair(channels: list, consts) -> list:
+    """Plain torch form of :func:`transform` driven by :func:`pair_consts`:
+    same-shaped int32 tensors (0..255) -> int32 tensors (0..255); a
+    fourth channel (alpha) passes through."""
+    consts = [int(v) for v in consts]
+    if len(channels) < 3:
+        return list(channels)
+    ch = list(channels[:3])
+    if consts[0]:
+        m, base = consts[1:10], consts[10:13]
+        r = [torch.div((ch[i] - base[i]) * 256, 255, rounding_mode="trunc")
+             for i in range(3)]
+        ch = [torch.clamp((m[3 * i] * r[0] + m[3 * i + 1] * r[1]
+                           + m[3 * i + 2] * r[2] + 128) >> 8, 0, 255)
+              for i in range(3)]
+    if consts[13]:
+        m, base = consts[14:23], consts[23:26]
+        r = [c + (c == 255).to(c.dtype) for c in ch]
+        ch = [torch.clamp(((m[3 * i] * r[0] + m[3 * i + 1] * r[1]
+                            + m[3 * i + 2] * r[2] + 128) >> 8) + base[i],
+                          0, 255)
+              for i in range(3)]
+    return ch + list(channels[3:])

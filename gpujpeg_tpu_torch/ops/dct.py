@@ -14,6 +14,16 @@ round-to-nearest and rounding is half-to-even. The two sum the 64 terms
 in different orders, so a quotient within rounding distance of .5 can
 differ by one between them (and between either and the JAX package).
 
+**E1p**: blockify + DCT + quantisation of the component planes that E0
+(``ops/preprocess.py``) writes, for every plan. :func:`fdct_quant_planes`
+wraps ``csrc/fdct_quant_planes.cu``: E1's design and arithmetic, with
+each scan-order block gathered from its plane through
+``plan.block_plane_idx`` (it replaces the DCT+quant of the JAX
+reference's ``block_chunks_dct_fused``, K6, and the staged path's XLA
+blockify, gather and DCT matmul, ``jax_pipeline.py:209-243``).
+:func:`fdct_quant_planes_plain` is its plain torch version. On 4:4:4 RGB
+input, E1p on E0's planes equals E1 bit for bit.
+
 **D2**: dequantisation + IDCT + inverse colour transform + unblockify.
 :func:`idct_rgb` wraps ``csrc/idct_rgb.cu`` (it replaces the fused
 dequant+IDCT tail of ``pallas_decode_v3.run_pixels``, K2, the
@@ -30,6 +40,7 @@ from __future__ import annotations
 import torch
 
 from .. import _build
+from .blocks import plane_to_blocks
 from .entropy import _check as check_operands
 from .rgbpack import planes_to_rgb, rgb_to_planes
 
@@ -101,6 +112,72 @@ def fdct_quant_plain(rgb: torch.Tensor, dct: torch.Tensor, bias: torch.Tensor,
     if interleaved:
         coeff = coeff.permute(1, 0, 2)
     return coeff.reshape(-1, 64).contiguous()
+
+
+def _check_planes(planes, dct, bias, qdiv, blk, block_plane_idx):
+    C = blk.shape[0] if blk.dim() == 2 else 0
+    if not 1 <= C <= 4:
+        raise ValueError(f"blk must hold 1..4 planes, got {tuple(blk.shape)}")
+    if planes.dim() != 1 or planes.numel() % 64:
+        raise ValueError(f"planes must be flat whole blocks, got "
+                         f"{tuple(planes.shape)}")
+    check_operands({"planes": (planes, planes.shape, torch.uint8),
+                    "dct": (dct, (64, 64), torch.float32),
+                    "bias": (bias, (64,), torch.float32),
+                    "qdiv": (qdiv, (C, 64), torch.float32),
+                    "blk": (blk, (C, 4), torch.int32),
+                    "block_plane_idx": (block_plane_idx,
+                                        (planes.numel() // 64,),
+                                        torch.int32)}, planes.device)
+
+
+def fdct_quant_planes(planes: torch.Tensor, dct: torch.Tensor,
+                      bias: torch.Tensor, qdiv: torch.Tensor,
+                      blk: torch.Tensor,
+                      block_plane_idx: torch.Tensor) -> torch.Tensor:
+    """(P,) uint8 component planes (E0's output) -> (P/64, 64) int32
+    zig-zag coefficients in scan order: row i is the plane block
+    ``block_plane_idx[i]``, divided by the divisor row ``qdiv[c]`` of its
+    plane c. ``blk`` holds per plane (byte offset, data width, first plane
+    block, blocks per row), planes in plane-block order."""
+    _check_planes(planes, dct, bias, qdiv, blk, block_plane_idx)
+    if planes.device.type == "cpu":
+        return fdct_quant_planes_plain(planes, dct, bias, qdiv, blk,
+                                       block_plane_idx)
+    if planes.device.type != "cuda":
+        raise ValueError(f"unsupported device {planes.device}")
+    NB = block_plane_idx.shape[0]
+    out = torch.empty((NB, 64), dtype=torch.int32, device=planes.device)
+    lib = _build.load_kernels()
+    err = lib.gj_fdct_quant_planes(
+        planes.data_ptr(), block_plane_idx.data_ptr(), NB, blk.data_ptr(),
+        blk.shape[0], qdiv.data_ptr(), dct.data_ptr(), bias.data_ptr(),
+        out.data_ptr(), torch.cuda.current_stream(planes.device).cuda_stream)
+    _build.check_launch("gj_fdct_quant_planes", err)
+    fdct_quant_planes.launches += 1
+    return out
+
+
+fdct_quant_planes.launches = 0
+
+
+def fdct_quant_planes_plain(planes: torch.Tensor, dct: torch.Tensor,
+                            bias: torch.Tensor, qdiv: torch.Tensor,
+                            blk: torch.Tensor,
+                            block_plane_idx: torch.Tensor) -> torch.Tensor:
+    """Plain torch version of :func:`fdct_quant_planes`: blockify each
+    plane, gather the blocks in scan order, a float32 matmul (on a CUDA
+    tensor the caller keeps TF32 off)."""
+    rows = blk.tolist()
+    ends = [r[0] for r in rows[1:]] + [planes.numel()]
+    blocks = torch.cat([
+        plane_to_blocks(planes[off:end].view(-1, dw))
+        for (off, dw, _, _), end in zip(rows, ends)])
+    first = torch.tensor([r[2] for r in rows], device=planes.device)
+    idx = block_plane_idx.to(torch.int64)
+    comp = torch.searchsorted(first, idx, right=True) - 1
+    y = torch.matmul(blocks[idx].to(torch.float32), dct) - bias
+    return torch.round(y / qdiv[comp]).to(torch.int32)
 
 
 def _check_idct(coeff, wq, q_of, xf, H, W):

@@ -21,6 +21,28 @@ output keeps the reference's ``(out, out_len, seg_bits, n_ff)`` contract
 that compaction reads. Each wrapper takes its plain torch version
 (:func:`huffman_blocks_plain`, :func:`merge_stuff_plain`) only for
 tensors on the CPU.
+
+E2 reads each block's DC predecessor (``plan.dc_pred_idx``) and class,
+and E3 each segment's first block and block count, so the two serve
+every segment geometry: interleaved MCU order, any sampling, 1, 3 or 4
+components, short last segments. On the general encode route (after E0
+and E1p) they stand for the reference's entropy kernels that
+``encode_rows_arrays`` and ``merge_and_stuff`` (``entropy_v2.py:
+1757-1813``) and the fused stage 1 dispatch between:
+
+* K6 ``block_chunks_dct_fused`` (stage 1 half; its DCT is E1p's) and K7
+  ``block_chunks_pallas``: E2;
+* K8 ``merge_stuff_packed`` (``bps*W == 128``), K9
+  ``merge_segments_packed`` (``bps*W <= 512``, both powers of two), K10
+  ``merge_segments_pallas`` (``cap_seg_words <= 126``) and K11
+  ``stuff_and_rst_pallas``: E3.
+
+``bps`` (blocks per segment padded to a power of two), ``W`` (words per
+block of the tier-1 byte budget) and ``cap_seg_words`` exist only to
+pick among those TPU kernels; E2 and E3 need none of them.
+``tests/test_torch_entropy_general.py`` holds the plain E2 + E3 bit for
+bit against each of K6-K11 in interpret mode, on the JAX package's own
+coefficients.
 """
 from __future__ import annotations
 

@@ -2,15 +2,26 @@
 
 Counterpart of the JAX reference's ``gpujpeg_tpu/ops/jax_pipeline.py``.
 
-**Encode** (raw RGB -> per-scan entropy bytes): a per-plan
+**Encode** (raw frame -> per-scan entropy bytes): a per-plan
 :class:`_EncContext` holds the plan's tables and geometry as tensors on
 the encoder's device; :func:`encode_segments_device` uploads the frame
-and runs
+and takes one of two routes:
 
-    E1 fdct_quant (ops/dct.py) -> E2 huffman_blocks -> E3 merge_stuff
-    (ops/entropy.py) -> compact_segments (ops/huffman_encode.py)
+* interleaved RGB 4:4:4 input at full resolution (``rgbpack.
+  pack_eligible``), the main path:
 
-and splits the compacted bytes into scan bodies.
+      E1 fdct_quant (ops/dct.py) -> E2 huffman_blocks -> E3 merge_stuff
+      (ops/entropy.py) -> compact_segments (ops/huffman_encode.py)
+
+* every other plan with restart markers (all 8 pixel formats, any
+  sampling, interleaved or not, 1/3/4 components, any colour pair):
+
+      E0 preprocess_planes (ops/preprocess.py) -> E1p fdct_quant_planes
+      (ops/dct.py) -> E2 -> E3 -> compact_segments
+
+and splits the compacted bytes into scan bodies. E2 and E3 take any
+segment geometry, so they stand for the reference's K6 entropy half,
+K7 and the ``merge_and_stuff`` dispatch (K8-K11) on the second route.
 
 **Decode** (entropy bytes -> raw RGB; the px branch of the reference's
 ``_decode_device_v2``): a per-(plan, tables) :class:`_DecContext` holds
@@ -23,11 +34,21 @@ host, uploads them and runs
 On a CUDA device each stage is a hand-written kernel; on the CPU each
 runs its plain torch version.
 
-The reference's TPU machinery has no counterpart: its tier-1/tier-2
-capacities and overflow retry (E2 and E3 use worst-case capacities, so
-no segment can overflow), the kernel downgrade chain, vmap batching,
-16K chunking, the decode's seg_tile sizing, v2/v3 route, wcap buckets,
-perf_stats staging jits and XLA fallback.
+The reference's TPU machinery has no counterpart, and why:
+
+* its tier-1/tier-2 capacities with the overflow retry, and the W/bps
+  power-of-two dispatch between its merge kernels: E2 and E3 size every
+  block and segment for the worst case, so nothing can overflow and one
+  kernel serves every geometry;
+* the kernel downgrade chain (``jax_pipeline.py:633-672``): a fallback
+  that hides a kernel's failure; here a kernel that fails to build or
+  launch raises;
+* 16K chunking (``jax_pipeline.py:492-583``), written for a 16 GB chip:
+  per block the port holds 256 B of coefficients, 224 B of E2 scratch,
+  4 B of bit length and at most 448 B of E3 output, about 0.93 KB, so a
+  16K 4:4:4 frame of 6.2M blocks needs about 5.8 GB of the H100's 80 GB;
+* vmap batching, perf_stats staging jits and XLA fallbacks, and on the
+  decode its seg_tile sizing, v2/v3 route and wcap buckets.
 """
 from __future__ import annotations
 
@@ -39,12 +60,13 @@ import torch
 from ..plan import CoderPlan
 from ..tables import (
     decode_device_tables, device_tables, idct_operator_f32)
-from .dct import fdct_quant, idct_rgb
+from .dct import fdct_quant, fdct_quant_planes, idct_rgb
 from .decode import (
     build_dec_tables_v2, build_rows, huffman_decode, quant_slots,
     table_slots)
 from .entropy import build_seg_geometry, huffman_blocks, merge_stuff
 from .huffman_encode import compact_segments
+from .preprocess import plane_geometry, preprocess_planes, upload_raw
 from .rgbpack import (
     pack_consts, pack_eligible, transform_consts_tensor, unpack_consts,
     unpack_eligible)
@@ -61,12 +83,11 @@ def _scan_order_ok(plan: CoderPlan) -> bool:
     return np.array_equal(plan.block_plane_idx, order)
 
 
-def device_eligible(plan: CoderPlan) -> bool:
-    """True when the device encode covers this plan: restart markers on,
-    interleaved RGB 4:4:4 input at full resolution (``pack_eligible``),
-    and one of the two scan orders of :func:`_scan_order_ok`."""
-    return (plan.params.restart_interval > 0 and pack_eligible(plan)
-            and _scan_order_ok(plan))
+def rgb_eligible(plan: CoderPlan) -> bool:
+    """True when the encode takes the E1 route: interleaved RGB 4:4:4
+    input at full resolution (``pack_eligible``) and one of the two scan
+    orders of :func:`_scan_order_ok`. Every other plan takes E0 + E1p."""
+    return pack_eligible(plan) and _scan_order_ok(plan)
 
 
 def decode_eligible(plan: CoderPlan, out_image) -> bool:
@@ -80,29 +101,57 @@ def decode_eligible(plan: CoderPlan, out_image) -> bool:
 
 class _EncContext:
     """The plan's device operands: tables, DCT operator, per-component
-    divisor rows, colour-transform constants and segment geometry."""
+    divisor rows, colour-transform constants, plane geometry and segment
+    geometry."""
 
     def __init__(self, plan: CoderPlan, quant_zz: dict, huff: dict,
                  device: torch.device):
-        if not device_eligible(plan):
-            raise NotImplementedError(
-                "the device encode covers interleaved RGB 4:4:4 input with "
-                "restart markers; other geometries are not ported yet")
+        if plan.params.restart_interval <= 0:
+            raise ValueError("the device encode needs restart markers "
+                             "(restart_interval > 0)")
         self.plan = plan
         self.device = device
         self.tables = device_tables(quant_zz, huff, device)
         self.qdiv = torch.stack([self.tables.qdiv[c.quant_table_index]
                                  for c in plan.components]).contiguous()
-        self.xf = transform_consts_tensor(pack_consts(plan), device)
-        self.interleaved = bool(plan.params.interleaved)
         self.geo = build_seg_geometry(plan, device)
+        self.planes = plane_geometry(plan, device)
+        self.rgb_route = rgb_eligible(plan)
+        self.interleaved = bool(plan.params.interleaved)
+        if self.rgb_route:
+            self.xf = transform_consts_tensor(pack_consts(plan), device)
 
-    def run(self, rgb: torch.Tensor):
-        """(H, W, 3) uint8 on the context's device -> (out, out_len,
-        seg_bits, n_ff) of :func:`entropy.merge_stuff`."""
+    def upload(self, raw) -> torch.Tensor:
+        """Raw frame (bytes or a NumPy array) -> what :meth:`run` takes:
+        (H, W, 3) uint8 on the E1 route, the flat bytes otherwise."""
+        if self.rgb_route:
+            return upload_rgb(raw, self.plan, self.device)
+        return upload_raw(raw, self.plan.image, self.device)
+
+    def run(self, x: torch.Tensor):
+        """:meth:`upload`'s tensor -> (out, out_len, seg_bits, n_ff) of
+        :func:`entropy.merge_stuff`."""
+        return self.entropy(self.coefficients(x))
+
+    def coefficients(self, x: torch.Tensor) -> torch.Tensor:
+        """:meth:`upload`'s tensor -> (NB, 64) int32 scan-order
+        coefficients, by E1 or by E0 + E1p."""
+        if self.rgb_route:
+            t = self.tables
+            return fdct_quant(x, t.dct, t.bias, self.qdiv, self.xf,
+                              self.interleaved)
+        return self.coefficients_planes(x)
+
+    def coefficients_planes(self, raw: torch.Tensor) -> torch.Tensor:
+        """Flat raw bytes (:func:`preprocess.upload_raw`) -> scan-order
+        coefficients by E0 + E1p, for any plan."""
+        t, g = self.tables, self.planes
+        return fdct_quant_planes(preprocess_planes(raw, g), t.dct, t.bias,
+                                 self.qdiv, g.blk, g.block_plane_idx)
+
+    def entropy(self, coeff: torch.Tensor):
+        """Scan-order coefficients -> E2 -> E3."""
         t, g = self.tables, self.geo
-        coeff = fdct_quant(rgb, t.dct, t.bias, self.qdiv, self.xf,
-                           self.interleaved)
         words, bits = huffman_blocks(coeff, g.dc_pred, g.block_cls,
                                      t.ac512, t.dc64)
         return merge_stuff(words, bits, g.seg_start, g.seg_count, g.rst,
@@ -136,8 +185,7 @@ def encode_segments_device(encoder, raw, plan: CoderPlan, quant_zz: dict,
     ctx = _enc_context(encoder._contexts, plan, quant_zz, huff,
                        encoder.device)
     t0 = time.perf_counter()
-    rgb = upload_rgb(raw, plan, ctx.device)
-    out, out_len, _seg_bits, _n_ff = ctx.run(rgb)
+    out, out_len, _seg_bits, _n_ff = ctx.run(ctx.upload(raw))
     out_len_h = out_len.cpu().numpy()
     encoder.stats.duration_in_gpu = (time.perf_counter() - t0) * 1e3
     return _split_scan_bodies(plan, ctx, out, out_len_h)

@@ -7,20 +7,35 @@ Behavioral analog of the reference's template-matrix CUDA kernels
 (nearest-neighbor chroma replication), apply the integer color transform,
 then subsample-store into MCU-padded per-component planes — and the inverse.
 
-The port runs this module on the host with ``xp=numpy`` (the golden
-coder's preprocess and the golden decoder's postprocess). Packed pixel
-data is viewed as ``(H, W*bpp)`` and channels are extracted with
-minor-dim strided slices. The device encode of interleaved RGB input
-folds this stage into its DCT kernel (``ops/dct.py``).
+The port runs :func:`preprocess` and :func:`postprocess` on the host
+with ``xp=numpy`` (the golden coder's preprocess and the golden
+decoder's postprocess). Packed pixel data is viewed as ``(H, W*bpp)``
+and channels are extracted with minor-dim strided slices.
+
+**E0** :func:`preprocess_planes` is the device form of
+:func:`preprocess` for every pixel format, colour pair and sampling: the
+wrapper of the hand-written CUDA kernel ``csrc/preprocess.cu``. It
+replaces the XLA preprocess of the JAX reference's staged and fused
+encodes (``gpujpeg_tpu/ops/preprocess.py:150``, traced inside
+``jax_pipeline._EncContext._build_fn``). Its output is the MCU-padded u8
+planes concatenated in component order, which E1p
+(``ops/dct.py:fdct_quant_planes``) reads. :func:`preprocess_planes_plain`
+is its plain torch version; the wrapper takes it only for tensors on the
+CPU. The device encode of interleaved RGB 4:4:4 input skips E0: its DCT
+kernel E1 reads the raw bytes itself.
 """
 from __future__ import annotations
 
-import numpy as np
+import dataclasses
 
+import numpy as np
+import torch
+
+from .. import _build
 from ..params import ImageParameters
 from ..plan import CoderPlan
 from ..types import PixelFormat, PIXEL_FORMAT_DESC
-from .colorspace import transform
+from .colorspace import PAIR_CONSTS, apply_pair, pair_consts, transform
 
 
 def _edge_pad(plane, dh: int, dw: int, xp):
@@ -172,3 +187,201 @@ def postprocess(planes, out_image: ImageParameters, plan: CoderPlan, xp=np):
     channels = transform(channels, plan.params.color_space_internal,
                          out_image.color_space, xp)
     return pack_raw(channels, out_image, xp)
+
+
+# ---------------------------------------------------------------------------
+# E0: the device preprocessor
+# ---------------------------------------------------------------------------
+
+_PLANAR = (PixelFormat.PF_444_U8_P0P1P2, PixelFormat.PF_422_U8_P0P1P2,
+           PixelFormat.PF_420_U8_P0P1P2)
+#: columns of :attr:`PlaneGeometry.comp`
+COMP_COLS = 8
+#: columns of :attr:`PlaneGeometry.src`
+SRC_COLS = 5
+
+
+def _planar_inputs(image: ImageParameters) -> list[tuple[int, ...]]:
+    """Per input plane of a planar format: (byte offset, width, height,
+    column and row replication to full resolution), as ``unpack_raw``
+    lays them out."""
+    sf = PIXEL_FORMAT_DESC[PixelFormat(image.pixel_format)].sampling
+    max_h, max_v = sf[0].horizontal, sf[0].vertical
+    rows, pos = [], 0
+    for c in range(3):
+        cw = -(-image.width * sf[c].horizontal // max_h)
+        ch = -(-image.height * sf[c].vertical // max_v)
+        rows.append((pos, cw, ch, max_h // sf[c].horizontal,
+                     max_v // sf[c].vertical))
+        pos += cw * ch
+    return rows
+
+
+def raw_size(image: ImageParameters) -> int:
+    """Bytes of one raw frame in the image's pixel format."""
+    pf = PixelFormat(image.pixel_format)
+    if pf in _PLANAR:
+        return sum(cw * ch for _, cw, ch, _, _ in _planar_inputs(image))
+    return image.width * image.height * PIXEL_FORMAT_DESC[pf].bpp
+
+
+def upload_raw(raw, image: ImageParameters, device) -> torch.Tensor:
+    """A raw frame in any pixel format (bytes or a NumPy array) -> its
+    flat uint8 bytes on ``device``. Raises ValueError when the byte count
+    is not the format's (:func:`raw_size`), or for UYVY of odd width,
+    which the reference's loader cannot unpack either."""
+    a = np.frombuffer(raw, np.uint8) if isinstance(
+        raw, (bytes, bytearray, memoryview)) else np.asarray(raw, np.uint8)
+    a = a.reshape(-1)
+    n = raw_size(image)
+    if a.size != n:
+        raise ValueError(f"raw frame holds {a.size} bytes, "
+                         f"{PixelFormat(image.pixel_format).name} "
+                         f"{image.width}x{image.height} needs {n}")
+    if (PixelFormat(image.pixel_format) == PixelFormat.PF_422_U8_P1020
+            and image.width % 2):
+        raise ValueError("PF_422_U8_P1020 needs an even width")
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+@dataclasses.dataclass(frozen=True)
+class PlaneGeometry:
+    """The operands of E0 and E1p for one plan, on one device."""
+
+    fmt: int                      # PixelFormat of the raw input
+    height: int
+    width: int
+    n_ch: int                     # channels unpacked from the raw input
+    raw_bytes: int                # bytes of one raw frame (``raw_size``)
+    #: (C, COMP_COLS) int32 per output plane: byte offset in the output,
+    #: data width, data height, selected rows, selected columns, row and
+    #: column selection step, channel index
+    comp: torch.Tensor
+    #: (3, SRC_COLS) int32 per input plane of a planar format: byte
+    #: offset, width, height, column and row replication (zeros otherwise)
+    src: torch.Tensor
+    #: (PAIR_CONSTS,) int32 colour-pair constants (``pair_consts``)
+    xf: torch.Tensor
+    total: int                    # bytes of all output planes
+    #: (C, 4) int32 per plane for E1p: byte offset, data width, first
+    #: plane block, blocks per row
+    blk: torch.Tensor
+    #: (NB,) int32 scan order -> plane order (``plan.block_plane_idx``)
+    block_plane_idx: torch.Tensor
+
+
+def plane_geometry(plan: CoderPlan, device) -> PlaneGeometry:
+    img = plan.image
+    H, W = img.height, img.width
+    pf = PixelFormat(img.pixel_format)
+    desc = PIXEL_FORMAT_DESC[pf]
+    n_ch = (4 if desc.comp_count == 4 or img.comp_count == 4 else 3) \
+        if pf in (PixelFormat.PF_444_U8_P012Z, PixelFormat.PF_444_U8_P012A) \
+        else desc.comp_count
+    comp, blk, off = [], [], 0
+    for c in plan.components:
+        # subsample by selection, as ``preprocess`` does
+        rx = -(-W // c.width) if c.width else 1
+        ry = -(-H // c.height) if c.height else 1
+        rows_sel = min(c.height, -(-H // ry))
+        cols_sel = min(c.width, -(-W // rx))
+        comp.append((off, c.data_width, c.data_height, rows_sel, cols_sel,
+                     ry, rx, c.index))
+        blk.append((off, c.data_width, c.plane_block_offset,
+                     c.block_count_x))
+        off += c.data_width * c.data_height
+    src = _planar_inputs(img) if pf in _PLANAR else [(0,) * SRC_COLS] * 3
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a, np.int32),
+                               device=device)
+
+    return PlaneGeometry(
+        fmt=int(pf), height=H, width=W, n_ch=n_ch, raw_bytes=raw_size(img),
+        comp=t(comp), src=t(src),
+        xf=t(pair_consts(img.color_space, plan.params.color_space_internal,
+                         n_ch)),
+        total=off, blk=t(blk), block_plane_idx=t(plan.block_plane_idx))
+
+
+def _check_e0(raw: torch.Tensor, g: PlaneGeometry) -> None:
+    if raw.dtype != torch.uint8 or tuple(raw.shape) != (g.raw_bytes,):
+        raise ValueError(f"raw must be ({g.raw_bytes},) uint8, got "
+                         f"{tuple(raw.shape)} {raw.dtype}")
+    C = g.comp.shape[0]
+    for name, t, shape in (("comp", g.comp, (C, COMP_COLS)),
+                           ("src", g.src, (3, SRC_COLS)),
+                           ("xf", g.xf, (PAIR_CONSTS,))):
+        if tuple(t.shape) != shape or t.dtype != torch.int32:
+            raise ValueError(f"{name} must be {shape} int32, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+    for t in (raw, g.comp, g.src, g.xf):
+        if t.device != raw.device:
+            raise ValueError("all operands must be on one device")
+        if not t.is_contiguous():
+            raise ValueError("operands must be contiguous")
+    if not 1 <= C <= 4 or g.total <= 0 or g.total >= 1 << 31:
+        raise ValueError(f"{C} planes of {g.total} bytes are out of range")
+
+
+def preprocess_planes(raw: torch.Tensor, g: PlaneGeometry) -> torch.Tensor:
+    """(n,) uint8 raw frame (:func:`upload_raw`) -> (g.total,) uint8: the
+    plan's MCU-padded component planes, concatenated in component
+    order, each (data_height, data_width) row-major."""
+    _check_e0(raw, g)
+    if raw.device.type == "cpu":
+        return preprocess_planes_plain(raw, g)
+    if raw.device.type != "cuda":
+        raise ValueError(f"unsupported device {raw.device}")
+    out = torch.empty((g.total,), dtype=torch.uint8, device=raw.device)
+    lib = _build.load_kernels()
+    err = lib.gj_preprocess_planes(
+        raw.data_ptr(), g.fmt, g.height, g.width, g.n_ch,
+        g.comp.data_ptr(), g.comp.shape[0], g.src.data_ptr(),
+        g.xf.data_ptr(), out.data_ptr(), g.total,
+        torch.cuda.current_stream(raw.device).cuda_stream)
+    _build.check_launch("gj_preprocess_planes", err)
+    preprocess_planes.launches += 1
+    return out
+
+
+preprocess_planes.launches = 0
+
+
+def _unpack_plain(raw: torch.Tensor, g: PlaneGeometry) -> list:
+    """``unpack_raw`` in torch: full-resolution int32 channels (H, W)."""
+    H, W, pf = g.height, g.width, PixelFormat(g.fmt)
+    if pf == PixelFormat.U8:
+        return [raw.view(H, W).to(torch.int32)]
+    if pf == PixelFormat.PF_444_U8_P012:
+        m = raw.view(H, W, 3).to(torch.int32)
+        return [m[..., c] for c in range(3)]
+    if pf in (PixelFormat.PF_444_U8_P012Z, PixelFormat.PF_444_U8_P012A):
+        m = raw.view(H, W, 4).to(torch.int32)
+        return [m[..., c] for c in range(g.n_ch)]
+    if pf == PixelFormat.PF_422_U8_P1020:
+        # byte order per 2 pixels: comp#1 comp#0 comp#2 comp#0 (U Y V Y)
+        m = raw.view(H, 2 * W).to(torch.int32)
+        return [m[:, 1::2], m[:, 0::4].repeat_interleave(2, dim=1),
+                m[:, 2::4].repeat_interleave(2, dim=1)]
+    chans = []
+    for off, cw, ch, rx, ry in g.src.tolist():
+        plane = raw[off:off + cw * ch].view(ch, cw).to(torch.int32)
+        chans.append(plane.repeat_interleave(ry, dim=0)
+                     .repeat_interleave(rx, dim=1)[:H, :W])
+    return chans
+
+
+def preprocess_planes_plain(raw: torch.Tensor,
+                            g: PlaneGeometry) -> torch.Tensor:
+    """Plain torch version of :func:`preprocess_planes`: ``preprocess``
+    written in torch (unpack, colour transform at full resolution, then
+    selection and edge padding as one clamped gather per plane)."""
+    chans = apply_pair(_unpack_plain(raw, g), g.xf.tolist())
+    dev = raw.device
+    parts = []
+    for _, dw, dh, rows_sel, cols_sel, ry, rx, idx in g.comp.tolist():
+        rows = torch.clamp(torch.arange(dh, device=dev), max=rows_sel - 1) * ry
+        cols = torch.clamp(torch.arange(dw, device=dev), max=cols_sel - 1) * rx
+        parts.append(chans[idx][rows][:, cols].reshape(-1))
+    return torch.cat(parts).to(torch.uint8)

@@ -14,14 +14,15 @@ The forward arithmetic replicates ``colorspace._transform_to`` exactly:
 ``r = c + (c == 255)`` (equal to ``(c*256)//255`` for 0..255) and
 ``out = clip(((m.r + 128) >> 8) + base, 0, 255)`` with an arithmetic
 shift; the inverse replicates ``colorspace._transform_from``
-(:func:`planes_to_rgb`).
+(:func:`planes_to_rgb`). Both plain forms apply the arithmetic through
+``colorspace.apply_pair``.
 """
 from __future__ import annotations
 
 import torch
 
 from ..types import ColorSpace, PixelFormat
-from .colorspace import MATRIX_FROM, MATRIX_TO
+from .colorspace import MATRIX_FROM, MATRIX_TO, apply_pair
 
 
 def rgb_transform_consts(cs_from, cs_to):
@@ -120,12 +121,8 @@ def planes_to_rgb(planes: torch.Tensor, consts) -> torch.Tensor:
     arithmetic shift."""
     m9, base = consts
     if m9 is not None:
-        r = [torch.div((planes[i] - base[i]) * 256, 255, rounding_mode="trunc")
-             for i in range(3)]
-        planes = torch.stack([
-            torch.clamp((m9[3 * i] * r[0] + m9[3 * i + 1] * r[1]
-                         + m9[3 * i + 2] * r[2] + 128) >> 8, 0, 255)
-            for i in range(3)])
+        planes = torch.stack(apply_pair(list(planes),
+                                        (1, *m9, *base) + (0,) * 13))
     return planes.permute(1, 2, 0).to(torch.uint8).contiguous()
 
 
@@ -136,10 +133,4 @@ def rgb_to_planes(rgb: torch.Tensor, consts) -> torch.Tensor:
     ch = rgb.permute(2, 0, 1).to(torch.int32)
     if m9 is None:
         return ch
-    r = ch + (ch == 255).to(torch.int32)
-    out = []
-    for i in range(3):
-        acc = (m9[3 * i] * r[0] + m9[3 * i + 1] * r[1]
-               + m9[3 * i + 2] * r[2] + 128)
-        out.append(torch.clamp((acc >> 8) + base[i], 0, 255))
-    return torch.stack(out)
+    return torch.stack(apply_pair(list(ch), (0,) * 13 + (1, *m9, *base)))

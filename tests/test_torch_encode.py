@@ -216,12 +216,21 @@ def test_restart_interval_zero_takes_host_coder():
 
 
 def test_geometry_outside_the_slice_raises():
+    """4:2:0, once outside the encode slice, now takes E0 + E1p and
+    equals the JAX encoder's stream; only a device context without
+    restart markers raises."""
     img = make_test_rgb(64, 80)
     params, image = _setup(port, 80, 64, 75, 2)
     params = params.with_chroma_subsampling(420)
-    with pytest.raises(NotImplementedError):
-        port.Encoder(backend="torch", device="cpu").encode(
-            img.reshape(-1), params, image)
+    got = port.Encoder(backend="torch", device="cpu").encode(
+        img.reshape(-1), params, image)
+    rparams, rimage = _setup(ref, 80, 64, 75, 2)
+    assert got == ref.Encoder(backend="jax").encode(
+        img.reshape(-1), rparams.with_chroma_subsampling(420), rimage)
+    params0, _ = _setup(port, 80, 64, 75, 0)
+    quant_zz, huff = port.Encoder(backend="golden")._tables(params0)
+    with pytest.raises(ValueError, match="restart"):
+        _EncContext(make_plan(params0, image), quant_zz, huff, CPU)
 
 
 def test_wrappers_take_plain_versions_only_on_cpu():
