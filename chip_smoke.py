@@ -49,7 +49,25 @@ the first failure:
 9. every colour config (the six of the JAX package's
    tests/test_quality.py, YUV -> BT.601 and RGB -> RGB) at 17x13 and
    200x136, interleaved or not, encoded on the card and through the CPU
-   plain path to equal streams (outside .5 ties).
+   plain path to equal streams (outside .5 ties);
+10. the general decode's kernels at 8K (D1 huffman_decode, D2p
+   idct_planes, D3 postprocess_planes) on the streams of (a), (c) and
+   (e) RGB 4:4:4 Q100 interval 64, whose rows exceed 384 words (the JAX
+   package's K5 regime; each stream's row width is printed, (d)'s too):
+   D1 equal to its plain version and the native golden decoder, D2p
+   equal to its plain version and to the golden float64 IDCT except
+   |d| = 1 at .5 ties, D3 bit-exact against its plain version and the
+   host ``postprocess``; D2p + D3 to RGB equal to D2 on the main path's
+   stream and on (e); kernel and plain times;
+11. ``Decoder.decode`` end to end at 8K: (a) to I420 BT.709, (c) to RGB,
+   (e) to RGB (D2) and to planar 4:4:4 YCbCr (D2p + D3): the route's
+   kernels launched once per decode, the output the host postprocess of
+   the card's own planes, those within .5 ties of the golden decoder's,
+   PSNR within 0.01 dB of the golden decode's; first-call, steady and
+   stage times;
+12. every output format x {4:4:4, 4:2:0 interleaved, 4:2:2, gray} x
+   {17x13, 200x136} decoded on the card and through the CPU plain path
+   (no golden route), equal outside .5 IDCT ties.
 
 The line before the last is a JSON object with every kernel's numbers
 (its time, plain time, bound and launches on its path); the last line is
@@ -223,7 +241,8 @@ def phase_kernels(ctx, rgb) -> list[dict]:
     for name, src, repl, kern, plain, args, errv, bnd in (
             ("fdct_quant", "fdct_quant.cu", REPLACES, dct.fdct_quant,
              dct.fdct_quant_plain, e1, err1,
-             bound(nbytes(*e1[:-1], coeff), 2 * 64 * 64 * coeff.shape[0])),
+             bound(nbytes(*e1[:-1], coeff), coeff.shape[0]
+                   * (DCT_BLOCK_FLOPS + COLOUR_BLOCK_FLOPS))),
             ("huffman_blocks", "huffman_blocks.cu", REPLACES_E2,
              entropy.huffman_blocks, entropy.huffman_blocks_plain, e2, 0,
              bound(nbytes(*e2, bits) + words_used)),
@@ -403,26 +422,6 @@ def phase_encode(gj, img, params, image, plan, card: str,
     return launches, data
 
 
-def decode_parts(gj, data: bytes, device, out_cs=None):
-    """Parse a stream; return (info, plan, golden decode inputs, device
-    decode context, rows on ``device``). ``out_cs``: the output colour
-    space (RGB by default)."""
-    from gpujpeg_tpu_torch.models.decoder import huffman_maps
-    from gpujpeg_tpu_torch.ops.decode import build_rows
-    from gpujpeg_tpu_torch.ops.pipeline import _dec_context
-    from gpujpeg_tpu_torch.stream.reader import read_image
-    info = read_image(data)
-    plan, scan_data, segs = gj.Decoder(backend="golden")._plan_from_info(info)
-    dc, ac = huffman_maps(info)
-    out_image = gj.ImageParameters(
-        width=info.width, height=info.height,
-        color_space=gj.ColorSpace.RGB if out_cs is None else out_cs,
-        pixel_format=gj.PixelFormat.PF_444_U8_P012)
-    ctx = _dec_context({}, plan, info, dc, ac, out_image, torch.device(device))
-    rows = torch.from_numpy(build_rows(plan, scan_data, segs)).to(device)
-    return info, plan, (plan, scan_data, segs, dc, ac), ctx, rows
-
-
 def idct_tie_distance(ctx, info, coeff, diff) -> float:
     """Largest |frac(y64) - .5| over the (row, col, component) entries of
     the (H, W, 3) mask ``diff`` (y64: the float64 IDCT value + 128)."""
@@ -460,7 +459,8 @@ def phase_decode_kernels(gj, data: bytes, card: str) -> list[dict]:
     from gpujpeg_tpu_torch.ops import dct, decode
     from gpujpeg_tpu_torch.ops.rgbpack import (
         planes_to_rgb, transform_consts_tensor)
-    info, plan, gold_args, ctx, rows = decode_parts(gj, data, "cuda")
+    info, plan, gold_args, ctx, rows = general_parts(
+        gj, data, out_images(gj)["c"], "cuda")
     t = ctx.tables
     H, W = ctx.shape
     d1 = (rows, ctx.seg_start, ctx.seg_count, ctx.block_comp, t.quick,
@@ -512,7 +512,8 @@ def phase_decode_kernels(gj, data: bytes, card: str) -> list[dict]:
              bound(nbytes(*d1, coeff))),
             ("idct_rgb", "idct_rgb.cu", REPLACES_D2, dct.idct_rgb,
              dct.idct_rgb_plain, d2, err2, None,
-             bound(nbytes(*d2[:4], rgb), 2 * 64 * 64 * coeff.shape[0]))):
+             bound(nbytes(*d2[:4], rgb), coeff.shape[0]
+                   * (DCT_BLOCK_FLOPS + COLOUR_BLOCK_FLOPS)))):
         ms = cuda_ms(lambda: kern(*args), 10)
         if plain is not None:
             plain_ms = cuda_ms(lambda: plain(*args), 1)
@@ -527,9 +528,9 @@ def phase_decode_kernels(gj, data: bytes, card: str) -> list[dict]:
     return rows_out
 
 
-def dec_stage_ms(gj, dec, data: bytes) -> np.ndarray:
-    """Host-clock ms of the decode's stages, each ended by a sync:
-    parse (with the context lookup), row build, upload, D1+D2, D2H."""
+def dec_stage_ms(dec, data: bytes, out_image) -> np.ndarray:
+    """Host-clock ms of a decode's stages, each ended by a sync: parse
+    (with the context lookup), row build, upload, kernels, D2H."""
     from gpujpeg_tpu_torch.models.decoder import huffman_maps
     from gpujpeg_tpu_torch.ops.decode import build_rows
     from gpujpeg_tpu_torch.ops.pipeline import _dec_context
@@ -537,9 +538,6 @@ def dec_stage_ms(gj, dec, data: bytes) -> np.ndarray:
     t = [time.perf_counter()]
     info = read_image(data)
     plan, scan_data, segs = dec._plan_from_info(info)
-    out_image = gj.ImageParameters(
-        width=info.width, height=info.height, color_space=gj.ColorSpace.RGB,
-        pixel_format=gj.PixelFormat.PF_444_U8_P012)
     ctx = _dec_context(dec._contexts, plan, info, *huffman_maps(info),
                        out_image, dec.device)
     t.append(time.perf_counter())
@@ -548,10 +546,10 @@ def dec_stage_ms(gj, dec, data: bytes) -> np.ndarray:
     rows_d = torch.from_numpy(rows).to(dec.device)
     torch.cuda.synchronize()
     t.append(time.perf_counter())
-    rgb = ctx.run(rows_d)
+    raw = ctx.run(rows_d)
     torch.cuda.synchronize()
     t.append(time.perf_counter())
-    rgb.cpu().numpy()
+    raw.cpu().numpy()
     t.append(time.perf_counter())
     return np.diff(t) * 1e3
 
@@ -626,7 +624,9 @@ def phase_decode(gj, img, data: bytes, card: str) -> dict:
         small.reshape(-1), sp, si)
     s_cuda, _ = dec.decode(s_data)
     s_cpu, _ = gj.Decoder(backend="torch", device="cpu").decode(s_data)
-    info_s, _, _, ctx_s, rows_s = decode_parts(gj, s_data, "cuda")
+    info_s, _, _, ctx_s, rows_s = general_parts(gj, s_data, gj.ImageParameters(
+        width=256, height=256, color_space=gj.ColorSpace.RGB,
+        pixel_format=gj.PixelFormat.PF_444_U8_P012), "cuda")
     coeff_s = decode.huffman_decode(
         rows_s, ctx_s.seg_start, ctx_s.seg_count, ctx_s.block_comp,
         *(getattr(ctx_s.tables, n) for n in (
@@ -649,7 +649,7 @@ def phase_decode(gj, img, data: bytes, card: str) -> dict:
         fail("256x256 decode on the card differs from the CPU plain path "
              "beyond .5 ties")
 
-    stages = np.median([dec_stage_ms(gj, dec, data) for _ in range(3)],
+    stages = np.median([dec_stage_ms(dec, data, oi) for _ in range(3)],
                        axis=0)
     ctx = next(iter(dec._contexts.values()))
     from gpujpeg_tpu_torch.ops.decode import build_rows
@@ -677,6 +677,12 @@ def phase_decode(gj, img, data: bytes, card: str) -> dict:
 #: bytes/s and float32 FLOP/s outside the tensor cores
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
+#: float32 operations of one 8x8 block's (I)DCT in separable form (16
+#: eight-point transforms of 8 dot products of 8 terms; an FMA counts
+#: two), plus its 64 (de)quantisation multiplies and 64 level-shift adds
+DCT_BLOCK_FLOPS = 2 * 16 * 8 * 8 + 64 + 64
+#: a 3x3 colour transform, per block of one component (3 FMAs a value)
+COLOUR_BLOCK_FLOPS = 2 * 3 * 64
 
 
 def nbytes(*tensors) -> int:
@@ -867,7 +873,7 @@ def phase_general_kernels(gj, img: np.ndarray, configs: dict,
                 ("fdct_quant_planes", "fdct_quant_planes.cu", REPLACES_E1P,
                  dct.fdct_quant_planes, dct.fdct_quant_planes_plain, e1p,
                  err, bound(nbytes(*e1p[:-2], g.blk, g.block_plane_idx,
-                                   coeff), 2 * 64 * 64 * plan.n_blocks))):
+                                   coeff), DCT_BLOCK_FLOPS * plan.n_blocks))):
             ms = cuda_ms(lambda: kern(*args), 10)
             plain_ms = cuda_ms(lambda: plain(*args), 2)
             print(f"phase 7 (a): {card}: {kname} {ms:.4f} ms, plain "
@@ -1070,6 +1076,436 @@ def phase_small(gj) -> None:
           f"path's streams outside .5 ties", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phases 10-12: the general decode (D1 -> D2p -> D3)
+# ---------------------------------------------------------------------------
+
+REPLACES_K4 = "gpujpeg_tpu/ops/pallas_decode_v3.py:545"
+REPLACES_K5 = "gpujpeg_tpu/ops/pallas_decode.py:329"
+REPLACES_D2P = ("gpujpeg_tpu/ops/jax_pipeline.py:1156 (scan reorder) + "
+                "gpujpeg_tpu/ops/dct.py:42 + gpujpeg_tpu/ops/blocks.py:15")
+REPLACES_D3 = "gpujpeg_tpu/ops/preprocess.py:173"
+#: the JAX package's v3/v2 decoder threshold (``pallas_decode.V3_WCAP_MAX``):
+#: rows wider than this many words take K5 there
+V3_WCAP_MAX = 384
+#: D2p vs the golden float64 IDCT: share of values that may differ at ties
+D2P_MAX_GOLDEN_SHARE = 1e-3
+
+
+def decode_streams(gj, img: np.ndarray, configs: dict) -> dict:
+    """Phase 10-11's 8K streams, encoded on the card: name -> bytes. (a)
+    and (c) of phase 8; (d) RGB 4:4:4 Q100 ri=32; (e) RGB 4:4:4 Q100
+    ri=64, whose rows exceed V3_WCAP_MAX words (the K5 regime)."""
+    rgb = gj.ImageParameters(width=W8K, height=H8K,
+                             color_space=gj.ColorSpace.RGB,
+                             pixel_format=gj.PixelFormat.PF_444_U8_P012)
+    todo = {k: configs[k] for k in ("a", "c", "d")}
+    todo["e"] = (img.reshape(-1), gj.Parameters(quality=100,
+                                                restart_interval=64), rgb)
+    enc = gj.Encoder(backend="torch", device="cuda")
+    out = {k: enc.encode(raw, params, image)
+           for k, (raw, params, image) in todo.items()}
+    del enc
+    torch.cuda.empty_cache()
+    return out
+
+
+def out_images(gj) -> dict:
+    """The general decode's outputs at 8K: name -> output image."""
+    def im(cs, pf):
+        return gj.ImageParameters(width=W8K, height=H8K,
+                                  color_space=gj.ColorSpace[cs],
+                                  pixel_format=gj.PixelFormat[pf])
+    return {"a": im("YCBCR_BT709", "PF_420_U8_P0P1P2"),
+            "c": im("RGB", "PF_444_U8_P012"),
+            "e-rgb": im("RGB", "PF_444_U8_P012"),
+            "e": im("YCBCR_BT601_256LVLS", "PF_444_U8_P0P1P2")}
+
+
+def general_parts(gj, data: bytes, out_image, device):
+    """(info, plan, golden decode inputs, decode context, rows on
+    ``device``) of a stream decoded to ``out_image``."""
+    from gpujpeg_tpu_torch.models.decoder import huffman_maps
+    from gpujpeg_tpu_torch.ops.decode import build_rows
+    from gpujpeg_tpu_torch.ops.pipeline import _dec_context
+    from gpujpeg_tpu_torch.stream.reader import read_image
+    info = read_image(data)
+    plan, scan_data, segs = gj.Decoder(backend="golden")._plan_from_info(info)
+    dc, ac = huffman_maps(info)
+    ctx = _dec_context({}, plan, info, dc, ac, out_image, torch.device(device))
+    rows = torch.from_numpy(build_rows(plan, scan_data, segs)).to(device)
+    return info, plan, (plan, scan_data, segs, dc, ac), ctx, rows
+
+
+def split_planes(flat: np.ndarray, plan) -> list:
+    out, off = [], 0
+    for c in plan.components:
+        n = c.data_width * c.data_height
+        out.append(flat[off:off + n].reshape(c.data_height, c.data_width))
+        off += n
+    return out
+
+
+def plane_ties(a, b, coeff, plan, info) -> tuple[int, int, float]:
+    """(values that differ, max |d|, largest |frac(y64) - .5| over them)
+    between two flat plane arrays of one plan (y64: the float64 IDCT
+    value + 128 of the scan-order coefficients ``coeff``)."""
+    from gpujpeg_tpu_torch.tables import idct_dequant_matrix
+    a, b = np.asarray(a), np.asarray(b)
+    d = np.abs(a.astype(np.int32) - b.astype(np.int32))
+    idx = np.flatnonzero(d)
+    if idx.size == 0:
+        return 0, 0, 0.0
+    coeff = np.asarray(coeff)
+    inv = np.empty(plan.n_blocks, np.int64)
+    inv[plan.block_plane_idx] = np.arange(plan.n_blocks)
+    dist = np.full(idx.size, np.inf)
+    off = 0
+    for c in plan.components:
+        n = c.data_width * c.data_height
+        sel = (idx >= off) & (idx < off + n)
+        local = idx[sel] - off
+        r, col = local // c.data_width, local % c.data_width
+        pb = c.plane_block_offset + (r // 8) * c.block_count_x + col // 8
+        p = (r % 8) * 8 + col % 8
+        W64 = idct_dequant_matrix(np.asarray(
+            info.quant_tables[info.components[c.index].quant_table_index]))
+        y = np.einsum("nk,nk->n", coeff[inv[pb]].astype(np.float64),
+                      W64[:, p].T) + 128.0
+        dist[sel] = np.abs(y - np.floor(y) - 0.5)
+        off += n
+    return int(idx.size), int(d.max()), float(dist.max())
+
+
+def phase_general_decode_kernels(gj, streams: dict, main_data: bytes,
+                                 card: str) -> tuple[list, dict]:
+    """Phase 10: D1, D2p and D3 against their plain versions and the
+    golden decoder at 8K on (a), (c) and (e); D2p + D3 against D2 on the
+    main path's stream and on (e); kernel and plain times. Returns the
+    kernels' rows and, per stream, (plan, info, D1's coefficients, the
+    golden decoder's planes) for phase 11."""
+    from gpujpeg_tpu_torch.models.decoder import golden_planes
+    from gpujpeg_tpu_torch.native import decode_segments_native
+    from gpujpeg_tpu_torch.ops import dct, decode, preprocess as pre
+    outs = out_images(gj)
+    rows_out, gold = [], {}
+    for name in ("a", "c", "d", "e"):
+        data = streams[name]
+        out_image = outs.get(name, outs["c"])
+        info, plan, gold_args, ctx, rows = general_parts(gj, data, out_image,
+                                                         "cuda")
+        regime = "K5" if rows.shape[1] > V3_WCAP_MAX else "K4"
+        print(f"phase 10 ({name}): {len(data)} bytes, {plan.n_blocks} blocks "
+              f"in {plan.n_segments} segments, rows {tuple(rows.shape)}: "
+              f"wcap {rows.shape[1]} words ({regime} regime in the JAX "
+              f"package)", flush=True)
+        if name == "e" and rows.shape[1] <= V3_WCAP_MAX:
+            fail(f"(e): wcap {rows.shape[1]} is not above {V3_WCAP_MAX}")
+        if name == "d":
+            continue
+        t, b, g = ctx.tables, ctx.blocks, ctx.out
+        d1 = (rows, ctx.seg_start, ctx.seg_count, ctx.block_comp, t.quick,
+              t.maxcode, t.delta, t.huffval, t.dc_slot, t.ac_slot)
+        coeff = decode.huffman_decode(*d1)
+        coeff_p, d1_plain_ms = cuda_ms_once(
+            lambda: decode.huffman_decode_plain(*d1))
+        coeff_h = coeff.cpu().numpy()
+        gold_c = decode_segments_native(*gold_args)
+        bad_p = int((coeff != coeff_p).sum())
+        bad_g = int((coeff_h != gold_c).sum())
+        del coeff_p
+        d2p = (coeff, t.wq, t.q_of, b.blk, b.block_plane_idx, b.total)
+        planes = dct.idct_planes(*d2p)
+        planes_p = dct.idct_planes_plain(*d2p)
+        planes_h = planes.cpu().numpy()
+        n_p, err_p, tie_p = plane_ties(planes_h, planes_p.cpu().numpy(),
+                                       coeff_h, plan, info)
+        gold_pl = np.concatenate([p.reshape(-1) for p in
+                                  golden_planes(info, plan, gold_c)])
+        n_g, err_g, tie_g = plane_ties(planes_h, gold_pl, coeff_h, plan, info)
+        gold[name] = (plan, info, coeff_h, gold_pl)
+        del planes_p, gold_c
+        d3 = (planes, g)
+        raw = pre.postprocess_planes(*d3)
+        raw_p = pre.postprocess_planes_plain(*d3)
+        host = np.asarray(pre.postprocess(split_planes(planes_h, plan),
+                                          out_image, plan, np))
+        raw_h = raw.cpu().numpy()
+        bad_d3 = int((raw != raw_p).sum()) + int((raw_h != host).sum())
+        print(f"phase 10 ({name}): D1 {bad_p} coefficients differ from the "
+              f"plain version, {bad_g} from the native golden decoder; D2p "
+              f"{n_p} of {b.total} values differ from the plain version "
+              f"(max |d| {err_p}, farthest from a .5 tie {tie_p:.3g}), "
+              f"{n_g} from the golden float64 IDCT (max |d| {err_g}, "
+              f"farthest {tie_g:.3g}); D3 to "
+              f"{gj.PixelFormat(out_image.pixel_format).name} "
+              f"{gj.ColorSpace(out_image.color_space).name}: {bad_d3} bytes "
+              f"differ from the plain version and the host postprocess",
+              flush=True)
+        if bad_p or bad_g:
+            fail(f"({name}): D1 disagrees with its plain version or golden")
+        if err_p > 1 or n_p > D2_MAX_TIE_SHARE * b.total \
+                or tie_p > D2_TIE_EPS:
+            fail(f"({name}): D2p disagrees with its plain version beyond .5 "
+                 "ties")
+        if err_g > 1 or n_g > D2P_MAX_GOLDEN_SHARE * b.total \
+                or tie_g > D2_TIE_EPS:
+            fail(f"({name}): D2p disagrees with the golden IDCT beyond .5 "
+                 "ties")
+        if bad_d3:
+            fail(f"({name}): D3 disagrees with its plain version or the host "
+                 "postprocess")
+
+        if name == "a":
+            kern = [("idct_planes", "idct_planes.cu", REPLACES_D2P,
+                     dct.idct_planes, dct.idct_planes_plain, d2p, err_p,
+                     bound(nbytes(*d2p[:-1], planes),
+                           DCT_BLOCK_FLOPS * plan.n_blocks)),
+                    ("postprocess_planes", "postprocess.cu", REPLACES_D3,
+                     pre.postprocess_planes, pre.postprocess_planes_plain,
+                     d3, 0, bound(nbytes(planes, g.comp, g.dst, g.xf, raw)))]
+        else:
+            kern = []
+        if name in ("a", "e"):
+            kern.insert(0, (f"huffman_decode[{regime} regime ({name})]",
+                            "huffman_decode.cu",
+                            REPLACES_K4 if name == "a" else REPLACES_K5,
+                            decode.huffman_decode, None, d1, 0,
+                            bound(nbytes(*d1, coeff))))
+        for kname, src, repl, fn, plain, args, errv, bnd in kern:
+            ms = cuda_ms(lambda: fn(*args), 10)
+            plain_ms = d1_plain_ms if plain is None else \
+                cuda_ms(lambda: plain(*args), 2)
+            print(f"phase 10 ({name}): {card}: {kname} {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
+                  f"({bnd['bound_by']})", flush=True)
+            rows_out.append({"name": kname, "route": "cuda",
+                             "source": f"gpujpeg_tpu_torch/csrc/{src}",
+                             "replaces": repl, "launches": 0,
+                             "max_abs_err": errv, "ms": ms,
+                             "plain_ms": plain_ms, **bnd,
+                             "library_ms": None})
+        del ctx, rows, coeff, planes, raw, raw_p
+        torch.cuda.empty_cache()
+
+    # D2p + D3 to RGB equals D2 bit for bit on 4:4:4 streams; both timed
+    for name, data in (("main path", main_data), ("e", streams["e"])):
+        info, plan, _, ctx, rows = general_parts(gj, data, outs["c"], "cuda")
+        if not ctx.rgb_route:
+            fail(f"{name}: the stream does not take the D2 route")
+        coeff = ctx.coefficients(rows)
+        t = ctx.tables
+        b = pre.block_geometry(plan, "cuda")
+        og = pre.out_geometry(plan, outs["c"], "cuda")
+
+        def tail():
+            return pre.postprocess_planes(dct.idct_planes(
+                coeff, t.wq, t.q_of, b.blk, b.block_plane_idx, b.total), og)
+        by_d2, by_tail = ctx.pixels(coeff), tail()
+        n_bad = int((by_d2 != by_tail).sum())
+        d2_ms = cuda_ms(lambda: ctx.pixels(coeff), 10)
+        tail_ms = cuda_ms(tail, 10)
+        print(f"phase 10: {name}: D2p + D3 to RGB against D2: {n_bad} of "
+              f"{by_d2.numel()} bytes differ; {card}: D2 {d2_ms:.4f} ms, "
+              f"D2p + D3 {tail_ms:.4f} ms", flush=True)
+        if n_bad:
+            fail(f"{name}: D2p + D3 differs from D2")
+        del ctx, rows, coeff, by_d2, by_tail
+        torch.cuda.empty_cache()
+    return rows_out, gold
+
+
+def phase_general_decode(gj, img: np.ndarray, streams: dict, gold: dict,
+                         card: str) -> dict:
+    """Phase 11: ``Decoder.decode`` end to end at 8K: (a) to I420 BT.709,
+    (c) to RGB, (e) to RGB (D2) and to planar 4:4:4 YCbCr (D2p + D3).
+    Each kernel of the route launched once per decode; the output equal
+    to the host postprocess of the card's own planes, those planes within
+    the tie rule of the golden decoder's (phase 10), PSNR within 0.01 dB
+    of the golden decoder's; first-call, steady and stage times. Returns
+    the launch counts of (a) and (e) to planar (K4 and K5 regimes)."""
+    from gpujpeg_tpu_torch.ops import dct, decode, preprocess as pre
+    from gpujpeg_tpu_torch.ops.decode import build_rows
+    kernels = (decode.huffman_decode, dct.idct_rgb, dct.idct_planes,
+               pre.postprocess_planes)
+    outs = out_images(gj)
+    launches = {}
+    for name in ("a", "c", "e-rgb", "e"):
+        data = streams[name[0]]
+        out_image = outs[name]
+        dec = gj.Decoder(backend="torch", device="cuda")
+        dec.set_output_format(out_image.color_space, out_image.pixel_format)
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        out, oi = dec.decode(data)
+        first_ms = (time.perf_counter() - t0) * 1e3
+        got = {k.__name__: k.launches for k in kernels}
+        ctx = next(iter(dec._contexts.values()))
+        route = (dct.idct_rgb,) if ctx.rgb_route else (dct.idct_planes,
+                                                       pre.postprocess_planes)
+        want = {k.__name__: int(k in (decode.huffman_decode,) + route)
+                for k in kernels}
+        if got != want:
+            fail(f"({name}): launches {got}, expected {want}")
+        launches[name] = got
+        steady = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            again, _ = dec.decode(data)
+            steady.append((time.perf_counter() - t0) * 1e3)
+        if not np.array_equal(again, out):
+            fail(f"({name}): two decodes of one stream differ")
+        stages = np.median([dec_stage_ms(dec, data, out_image)
+                            for _ in range(3)], axis=0)
+
+        # the output is the exact postprocess of the card's own planes,
+        # and those are within the tie rule of the golden decoder's
+        plan, info, coeff_h, gold_pl = gold[name[0]]
+        b = pre.block_geometry(plan, "cuda")
+        t = ctx.tables
+        _, sd, segs = dec._plan_from_info(info)
+        coeff = ctx.coefficients(torch.from_numpy(
+            build_rows(plan, sd, segs)).cuda())
+        planes_h = dct.idct_planes(coeff, t.wq, t.q_of, b.blk,
+                                   b.block_plane_idx,
+                                   b.total).cpu().numpy()
+        host = np.asarray(pre.postprocess(split_planes(planes_h, plan),
+                                          out_image, plan, np))
+        n_out = int((host != out).sum())
+        n_g, err_g, tie_g = plane_ties(planes_h, gold_pl, coeff_h, plan, info)
+        ref = make_raw(gj, img, out_image)
+        gd = gj.Decoder(backend="golden")
+        gd.set_output_format(out_image.color_space, out_image.pixel_format)
+        gold_out = gd.decode(data)[0]
+        p_t, p_g = psnr(out, ref), psnr(gold_out, ref)
+        n_diff = int((gold_out != out).sum())
+        print(f"phase 11 ({name}): decode {W8K}x{H8K} -> "
+              f"{gj.PixelFormat(out_image.pixel_format).name} "
+              f"{gj.ColorSpace(out_image.color_space).name} ({out.size} "
+              f"bytes): launches {got}; {n_out} bytes differ from the host "
+              f"postprocess of the card's planes; planes against golden "
+              f"{n_g} values differ (max |d| {err_g}, farthest from a .5 tie "
+              f"{tie_g:.3g}); {n_diff} output bytes differ from the golden "
+              f"decoder's; PSNR {p_t:.4f} dB vs golden {p_g:.4f} dB",
+              flush=True)
+        print(f"phase 11 ({name}): {card}: decode first call {first_ms:.3f} "
+              f"ms, steady {float(np.median(steady)):.3f} ms (median of 5, "
+              f"host clock); stages (median of 3): parse {stages[0]:.3f} ms, "
+              f"row build {stages[1]:.3f} ms, upload {stages[2]:.3f} ms, "
+              f"kernels {stages[3]:.3f} ms, D2H {stages[4]:.3f} ms",
+              flush=True)
+        if n_out:
+            fail(f"({name}): the output is not the postprocess of the card's "
+                 "planes")
+        if err_g > 1 or n_g > D2P_MAX_GOLDEN_SHARE * b.total \
+                or tie_g > D2_TIE_EPS:
+            fail(f"({name}): the planes differ from golden beyond .5 ties")
+        if abs(p_t - p_g) > DEC_PSNR_DB:
+            fail(f"({name}): PSNR differs from the golden decode's by more "
+                 "than 0.01 dB")
+        del dec, ctx, coeff
+        torch.cuda.empty_cache()
+    return launches
+
+
+#: phase 12's stream plans: (name, input pixel format, sampling,
+#: interleaved)
+SMALL_DECODES = [("444", "PF_444_U8_P012", 444, False),
+                 ("420i", "PF_444_U8_P012", 420, True),
+                 ("422", "PF_444_U8_P012", 422, False),
+                 ("gray", "U8", 444, False),
+                 ("4comp", "PF_444_U8_P012A", 420, True)]
+
+
+def phase_small_decode(gj) -> None:
+    """Phase 12: every output format x {4:4:4, 4:2:0 interleaved, 4:2:2,
+    grayscale, 4 components (RGBA input, 4:2:0 interleaved)} x {17x13,
+    200x136} decoded on the card and through the CPU plain path with no
+    golden route: equal, or equal to the plain D3 of the card's own
+    planes, which differ from the CPU's only at .5 IDCT ties. UYVY takes
+    the next even width; gray streams skip UYVY and the planar formats
+    (``postprocess`` packs neither from one component)."""
+    import gpujpeg_tpu_torch.models.decoder as dmod
+    from gpujpeg_tpu_torch.ops import dct, preprocess as pre
+    from gpujpeg_tpu_torch.stream.reader import read_image
+    planar = ("PF_422_U8_P1020", "PF_444_U8_P0P1P2", "PF_422_U8_P0P1P2",
+              "PF_420_U8_P0P1P2")
+    old = dmod.CPU_SEGMENT_THRESHOLD
+    dmod.CPU_SEGMENT_THRESHOLD = 0
+    n = n_eq = 0
+    try:
+        for (sname, in_pf, sub, inter), (w, h), opf in (
+                (s, z, f) for s in SMALL_DECODES
+                for z in ((17, 13), (200, 136))
+                for f in gj.PixelFormat.__members__ if f != "NONE"):
+            if sname == "gray" and opf in planar:
+                continue
+            if opf == "PF_422_U8_P1020":
+                w += w % 2
+            image = gj.ImageParameters(width=w, height=h,
+                                       pixel_format=gj.PixelFormat[in_pf])
+            params = gj.Parameters(quality=85, restart_interval=2,
+                                   interleaved=inter
+                                   ).with_chroma_subsampling(sub)
+            src = make_image(h, w)
+            if in_pf == "U8":
+                src = src[..., :1]
+            elif in_pf == "PF_444_U8_P012A":
+                src = np.concatenate([src, make_image(h, w, 8)[..., :1]], 2)
+            raw = src.reshape(-1)
+            data = gj.Encoder(backend="golden").encode(raw, params, image)
+            out_image = gj.ImageParameters(
+                width=w, height=h,
+                color_space=gj.ColorSpace.YCBCR_BT709 if opf in planar
+                else gj.ColorSpace.RGB, pixel_format=gj.PixelFormat[opf])
+            n_comp = read_image(data).comp_count
+            if n_comp != {"gray": 1, "4comp": 4}.get(sname, 3):
+                fail(f"phase 12: the {sname} stream has {n_comp} components")
+            res = {}
+            before = (dct.idct_planes.launches, pre.postprocess_planes.launches)
+            for device in ("cuda", "cpu"):
+                dd = gj.Decoder(backend="torch", device=device)
+                dd.set_output_format(out_image.color_space,
+                                     out_image.pixel_format)
+                res[device] = dd.decode(data)[0]
+            if sname == "4comp" and (
+                    dct.idct_planes.launches == before[0]
+                    or pre.postprocess_planes.launches == before[1]):
+                fail(f"phase 12: 4comp {w}x{h} -> {opf} did not launch D2p "
+                     "and D3")
+            n += 1
+            if np.array_equal(res["cuda"], res["cpu"]):
+                n_eq += 1
+                continue
+            info, plan, _, ctx, rows = general_parts(gj, data, out_image,
+                                                     "cuda")
+            coeff = ctx.coefficients(rows)
+            t = ctx.tables
+            b = pre.block_geometry(plan, "cuda")
+            args = (coeff, t.wq, t.q_of, b.blk, b.block_plane_idx, b.total)
+            pl_card = dct.idct_planes(*args).cpu()
+            pl_cpu = dct.idct_planes_plain(*(a.cpu() if torch.is_tensor(a)
+                                             else a for a in args))
+            n_p, err_p, tie_p = plane_ties(pl_card.numpy(), pl_cpu.numpy(),
+                                           coeff.cpu().numpy(), plan, info)
+            own = pre.postprocess_planes_plain(
+                pl_card, pre.out_geometry(plan, out_image, "cpu")).numpy()
+            print(f"phase 12: {sname} {w}x{h} -> {opf}: the card's output "
+                  f"differs from the CPU path's; {n_p} plane values differ "
+                  f"(max |d| {err_p}, farthest from a .5 tie {tie_p:.3g})",
+                  flush=True)
+            if not np.array_equal(own, res["cuda"]) or err_p > 1 \
+                    or tie_p > D2_TIE_EPS:
+                fail(f"phase 12: {sname} {w}x{h} -> {opf}: the card differs "
+                     "from the CPU path beyond .5 IDCT ties")
+    finally:
+        dmod.CPU_SEGMENT_THRESHOLD = old
+    print(f"phase 12: {n} small decodes ({len(SMALL_DECODES)} stream plans "
+          f"x 17x13, 200x136 x output formats) on the card: {n_eq} equal to "
+          f"the CPU plain path's, the others outside .5 ties", flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a "
@@ -1116,6 +1552,19 @@ def main() -> None:
     launches.update({k: launches_a[k] for k in ("preprocess_planes",
                                                 "fdct_quant_planes")})
     phase_small(gj)
+
+    streams = decode_streams(gj, img, configs)
+    del configs
+    krows, gold = phase_general_decode_kernels(gj, streams, data, card)
+    rows += krows
+    dl = phase_general_decode(gj, img, streams, gold, card)
+    del streams, gold
+    launches.update({
+        "idct_planes": dl["a"]["idct_planes"],
+        "postprocess_planes": dl["a"]["postprocess_planes"],
+        "huffman_decode[K4 regime (a)]": dl["a"]["huffman_decode"],
+        "huffman_decode[K5 regime (e)]": dl["e"]["huffman_decode"]})
+    phase_small_decode(gj)
     for r in rows:
         r["launches"] = launches[r["name"]]
     print(json.dumps({"kernels": rows}), flush=True)

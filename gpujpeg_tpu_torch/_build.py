@@ -4,8 +4,9 @@ All ``csrc/*.cu`` sources compile with ``nvcc`` for ``sm_90a`` into one
 shared library with a plain C interface, which is loaded with ctypes.
 The library is named by a digest of the sources and kept in
 :func:`runtime.kernel_build_dir`, so a second process reuses it. The
-first call of :func:`load_kernels` in a checkout builds it (a few
-seconds per source file); nothing is compiled at import.
+first call of :func:`load_kernels` in a checkout builds it: one ``nvcc``
+per source, all started together, then one link (a few seconds in
+all); nothing is compiled at import.
 
 Every C entry launches on the stream it is given and returns
 ``cudaGetLastError()`` of its launch; the wrappers in ``ops/`` raise on a
@@ -20,12 +21,13 @@ import hashlib
 import os
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 
 from .runtime import kernel_build_dir, verify_private_dir
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -42,6 +44,8 @@ SIGNATURES = {
     "gj_preprocess_planes": [_P, _I, _I, _I, _I, _P, _I, _P, _P, _P, _I,
                              _P],
     "gj_fdct_quant_planes": [_P, _P, _I, _P, _I, _P, _P, _P, _P, _P],
+    "gj_idct_planes": [_P, _I, _P, _I, _P, _P, _I, _P, _P, _P],
+    "gj_postprocess_planes": [_P, _I, _I, _I, _P, _I, _P, _P, _P, _I, _P],
 }
 
 
@@ -73,10 +77,28 @@ def library_path() -> str:
     if os.path.exists(so):
         return so
     tmp = f"{so}.tmp{os.getpid()}"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs]
-    r = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr}")
+    nvcc = _nvcc()
+    objs = [f"{tmp}.{i}.o" for i in range(len(srcs))]
+
+    def run(*args):
+        return subprocess.run([nvcc, *NVCC_FLAGS, *args], capture_output=True,
+                              text=True, timeout=900)
+    try:
+        with ThreadPoolExecutor(len(srcs)) as pool:
+            done = list(pool.map(lambda src, o: run("-c", "-o", o, src),
+                                 srcs, objs))
+        failed = [f"{os.path.basename(s)}:\n{r.stderr}"
+                  for s, r in zip(srcs, done) if r.returncode != 0]
+        if not failed:
+            r = run("-shared", "-o", tmp, *objs)
+            if r.returncode != 0:
+                failed.append(f"link:\n{r.stderr}")
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     os.replace(tmp, so)
     return so
 

@@ -5,10 +5,13 @@ Pipeline: parse -> Huffman decode -> dequant+IDCT -> postprocess -> raw
 output. Backend ``"golden"`` runs it all on the host: the native C++
 segment decoder (NumPy golden decoder without a compiler), float64 IDCT
 and the NumPy postprocess. Backend ``"torch"`` runs the Huffman decode,
-IDCT and colour transform on a torch device (``ops/pipeline.py``):
-hand-written CUDA kernels on ``"cuda"``, their plain torch versions on
-``"cpu"``. Like the reference, streams with few segments take the host
-decoder (gpujpeg_decoder.c:238-252).
+IDCT and postprocess on a torch device (``ops/pipeline.py``) for every
+plan (any sampling, interleaved or not, 1/3/4 components) and every
+output pixel format and colour space: hand-written CUDA kernels on
+``"cuda"``, their plain torch versions on ``"cpu"``. Like the reference,
+streams with few segments take the host decoder
+(gpujpeg_decoder.c:238-252), streams without restart markers among
+them.
 """
 from __future__ import annotations
 
@@ -62,6 +65,22 @@ def huffman_maps(info) -> tuple[list, list]:
     return dc, ac
 
 
+def golden_planes(info, plan, coeff_scan: np.ndarray) -> list[np.ndarray]:
+    """Scan-order coefficients -> the golden decoder's MCU-padded uint8
+    planes, one ``(data_height, data_width)`` array per component (float64
+    dequant + IDCT)."""
+    coeff_plane = np.empty_like(coeff_scan)
+    coeff_plane[plan.block_plane_idx] = coeff_scan
+    planes = []
+    pos = 0
+    for c in plan.components:
+        qt = info.quant_tables[info.components[c.index].quant_table_index]
+        blocks = golden.dequant_idct(coeff_plane[pos:pos + c.block_count], qt)
+        planes.append(blocks_to_plane(blocks, c.data_height, c.data_width, np))
+        pos += c.block_count
+    return planes
+
+
 class DecoderStats:
     def __init__(self) -> None:
         self.duration_stream = 0.0
@@ -108,7 +127,9 @@ class Decoder:
         decode skips the kernel build and the per-geometry set-up
         (reference: gpujpeg_decoder_init, gpujpeg_decoder.c:158-202):
         encodes a natural-statistics frame of that geometry with this
-        decoder's backend and device, and decodes it."""
+        decoder's backend and device, and decodes it to the output
+        format set by :meth:`set_output_format`, which warms the decode
+        context of either route."""
         from ..types import image_calculate_size
         from .encoder import Encoder
         size = image_calculate_size(image.width, image.height,
@@ -128,10 +149,10 @@ class Decoder:
 
     def decode_to_device(self, data: bytes):
         """Decode leaving the raw image on the decoder's device: returns
-        (flat uint8 tensor, ImageParameters) on the torch backend — the
-        analog of the reference's custom-CUDA-buffer outputs
-        (gpujpeg_decoder.c:286-317). The golden backend returns a host
-        array."""
+        (flat uint8 tensor in the output's pixel format, ImageParameters)
+        on the torch backend — the analog of the reference's
+        custom-CUDA-buffer outputs (gpujpeg_decoder.c:286-317). The golden
+        backend returns a host array."""
         self.output_to_device = True
         try:
             return self.decode(data)
@@ -195,15 +216,7 @@ class Decoder:
             coeff_scan = golden.decode_segments(
                 plan, scan_data, segments_by_scan, dc_by_comp, ac_by_comp)
         t2 = time.perf_counter()
-        coeff_plane = np.empty_like(coeff_scan)
-        coeff_plane[plan.block_plane_idx] = coeff_scan
-        planes = []
-        pos = 0
-        for c in plan.components:
-            qt = info.quant_tables[info.components[c.index].quant_table_index]
-            blocks = golden.dequant_idct(coeff_plane[pos:pos + c.block_count], qt)
-            planes.append(blocks_to_plane(blocks, c.data_height, c.data_width, np))
-            pos += c.block_count
+        planes = golden_planes(info, plan, coeff_scan)
         t3 = time.perf_counter()
         raw = postprocess(planes, out_image, plan, np)
         t4 = time.perf_counter()

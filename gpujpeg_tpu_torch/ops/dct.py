@@ -1,4 +1,4 @@
-"""E1 and D2: the dense stages of the device encode and decode.
+"""E1, E1p, D2 and D2p: the dense stages of the device encode and decode.
 
 **E1**: colour transform + blockify + DCT + quantisation of interleaved
 RGB. :func:`fdct_quant` is the wrapper of the hand-written CUDA kernel
@@ -34,13 +34,23 @@ its plain torch version. Both compute ``clip(rint(x @ Wq + 128), 0,
 ``tables.idct_operator_f32``, then the exact integer inverse transform
 (``rgbpack.planes_to_rgb``). A value within float32 rounding of .5 may
 round differently between the two sums, so a pixel there can differ.
+
+**D2p**: dequantisation + IDCT + unblockify into the component planes,
+for every plan. :func:`idct_planes` wraps ``csrc/idct_planes.cu``: D2's
+design and arithmetic, with each scan-order block written to its plane
+through ``plan.block_plane_idx`` (it replaces the JAX reference's plan
+tail after K4 or K5: the scan -> plane gather, ``dequant_idct_device``
+and ``blocks_to_plane``, ``jax_pipeline.py:1147-1184``). Its output is
+E0's layout, which D3 (``ops/preprocess.py:postprocess_planes``) packs.
+:func:`idct_planes_plain` is its plain torch version. On 4:4:4 input, D2p
+followed by D3 to RGB equals D2 bit for bit.
 """
 from __future__ import annotations
 
 import torch
 
 from .. import _build
-from .blocks import plane_to_blocks
+from .blocks import blocks_to_plane, plane_to_blocks
 from .entropy import _check as check_operands
 from .rgbpack import planes_to_rgb, rgb_to_planes
 
@@ -236,3 +246,78 @@ def idct_rgb_plain(coeff: torch.Tensor, wq: torch.Tensor, q_of: torch.Tensor,
     vals = xf.tolist()
     return planes_to_rgb(planes, (None, None) if vals[12]
                          else (vals[:9], vals[9:12]))
+
+
+def _check_idct_planes(coeff, wq, q_of, blk, block_plane_idx, total):
+    C = blk.shape[0] if blk.dim() == 2 else 0
+    if not 1 <= C <= 4:
+        raise ValueError(f"blk must hold 1..4 planes, got {tuple(blk.shape)}")
+    n_q = wq.shape[0] if wq.dim() == 3 else 0
+    if not 1 <= n_q <= 4:
+        raise ValueError(f"wq must hold 1..4 operators, got {tuple(wq.shape)}")
+    if not 0 < total < 1 << 31 or total % 64:
+        raise ValueError(f"planes of {total} bytes are out of range")
+    check_operands({"coeff": (coeff, (total // 64, 64), torch.int32),
+                    "wq": (wq, (n_q, 64, 64), torch.float32),
+                    "q_of": (q_of, (C,), torch.int32),
+                    "blk": (blk, (C, 4), torch.int32),
+                    "block_plane_idx": (block_plane_idx, (total // 64,),
+                                        torch.int32)}, coeff.device)
+
+
+def idct_planes(coeff: torch.Tensor, wq: torch.Tensor, q_of: torch.Tensor,
+                blk: torch.Tensor, block_plane_idx: torch.Tensor,
+                total: int) -> torch.Tensor:
+    """(NB, 64) int32 zig-zag coefficients in scan order (D1's output) ->
+    (total,) uint8 MCU-padded component planes, concatenated in component
+    order, each (data_height, data_width) row-major (E0's layout). Row i
+    is the plane block ``block_plane_idx[i]`` and takes the operator
+    ``wq[q_of[c]]`` of its plane c. ``blk`` holds per plane (byte offset,
+    data width, first plane block, blocks per row), planes in plane-block
+    order (``preprocess.block_geometry``)."""
+    _check_idct_planes(coeff, wq, q_of, blk, block_plane_idx, total)
+    if coeff.device.type == "cpu":
+        return idct_planes_plain(coeff, wq, q_of, blk, block_plane_idx,
+                                 total)
+    if coeff.device.type != "cuda":
+        raise ValueError(f"unsupported device {coeff.device}")
+    out = torch.empty((total,), dtype=torch.uint8, device=coeff.device)
+    lib = _build.load_kernels()
+    err = lib.gj_idct_planes(
+        coeff.data_ptr(), coeff.shape[0], wq.data_ptr(), wq.shape[0],
+        q_of.data_ptr(), blk.data_ptr(), blk.shape[0],
+        block_plane_idx.data_ptr(), out.data_ptr(),
+        torch.cuda.current_stream(coeff.device).cuda_stream)
+    _build.check_launch("gj_idct_planes", err)
+    idct_planes.launches += 1
+    return out
+
+
+idct_planes.launches = 0
+
+
+def idct_planes_plain(coeff: torch.Tensor, wq: torch.Tensor,
+                      q_of: torch.Tensor, blk: torch.Tensor,
+                      block_plane_idx: torch.Tensor,
+                      total: int) -> torch.Tensor:
+    """Plain torch version of :func:`idct_planes`: a float32 matmul per
+    plane on its scan-order rows (on a CUDA tensor the caller keeps TF32
+    off), round half to even, clamp, then the scatter to plane order and
+    the un-blockify."""
+    rows = blk.tolist()
+    idx = block_plane_idx.to(torch.int64)
+    first = torch.tensor([r[2] for r in rows], device=coeff.device)
+    comp = torch.searchsorted(first, idx, right=True) - 1
+    x = coeff.to(torch.float32)
+    px = torch.empty(coeff.shape, dtype=torch.uint8, device=coeff.device)
+    for c, q in enumerate(q_of.tolist()):
+        sel = torch.nonzero(comp == c)[:, 0]
+        y = torch.matmul(x[sel], wq[q]) + 128.0
+        px[sel] = torch.clamp(torch.round(y), 0, 255).to(torch.uint8)
+    blocks = torch.empty_like(px)
+    blocks[idx] = px
+    ends = [r[0] for r in rows[1:]] + [total]
+    return torch.cat([
+        blocks_to_plane(blocks[pb:pb + (end - off) // 64],
+                        (end - off) // dw, dw).reshape(-1)
+        for (off, dw, pb, _), end in zip(rows, ends)])

@@ -1,16 +1,23 @@
 """Segment-parallel Huffman decode of the device decode: host prep and D1.
 
 Counterpart of the JAX reference's ``gpujpeg_tpu/ops/pallas_decode.py``
-(host half) and of the Huffman half of ``pallas_decode_v3`` (K2). The
-host destuffs every restart segment into a row of big-endian u32 words
+(host half) and of its three Huffman decoders. The host destuffs every
+restart segment into a row of big-endian u32 words
 (:func:`build_segment_rows_from_ranges`, the native ``gj_build_rows``);
 the decode tables (:func:`build_dec_tables_v2`) and the DC-first table
 slots (:func:`table_slots`) are the reference's, bit for bit.
 
 **D1** :func:`huffman_decode` (``csrc/huffman_decode.cu``) decodes the
-rows to zig-zag coefficients in scan order, one thread per segment; its
-plain torch version :func:`huffman_decode_plain` decodes all segments in
-lockstep, one symbol per step. The wrapper takes the plain version only
+rows to zig-zag coefficients in scan order, one thread per segment, for
+any plan: any block -> component map (interleaved MCUs of 3 to 10
+blocks, 1 to 4 components) and any row width. It is the counterpart of
+the Huffman half of ``pallas_decode_v3.make_decode_kernel_v3`` (K2), of
+its coefficient form ``run_raw`` (K4, rows of at most ``V3_WCAP_MAX`` =
+384 words) and of the v2 decoder ``pallas_decode.make_decode_kernel``
+(K5, longer rows). Its plain torch version :func:`huffman_decode_plain`
+decodes all segments in lockstep, one symbol per step; it also stands
+for the reference's XLA v1 decoder (``huffman_decode.py:93``, its form
+on a backend without Pallas). The wrapper takes the plain version only
 for tensors on the CPU.
 
 Both follow K2 where it differs from the golden decoder on a corrupt
@@ -18,8 +25,10 @@ stream: reads past a row see zero words, an invalid code gives symbol 0
 and consumes one bit, and a position past 63 writes nothing and ends
 the block *after* consuming that symbol's value bits (golden stops
 before them). The TPU-only parts of the reference (seg_tile sizing, the
-v2/v3 route at ``V3_WCAP_MAX``, ``bucket_wcap``, the transposed rows)
-have no counterpart: the row width ``wcap`` is a runtime argument.
+v2/v3 route at ``V3_WCAP_MAX``, ``bucket_wcap``, the transposed rows,
+the interleaved slot template) have no counterpart: the row width
+``wcap`` is a runtime argument, and zero words past a segment's data
+are harmless.
 """
 from __future__ import annotations
 
@@ -110,7 +119,8 @@ def table_slots(plan, dc_by_comp, ac_by_comp):
 
 def quant_slots(plan, info):
     """The plan's quant tables deduplicated: (unique zig-zag tables as
-    int tuples, (3,) int32 component -> unique-table index)."""
+    int tuples, (C,) int32 component -> unique-table index), for 1 to 4
+    components."""
     keys = tuple(
         tuple(int(x) for x in info.quant_tables[
             info.components[c.index].quant_table_index])

@@ -23,13 +23,25 @@ and splits the compacted bytes into scan bodies. E2 and E3 take any
 segment geometry, so they stand for the reference's K6 entropy half,
 K7 and the ``merge_and_stuff`` dispatch (K8-K11) on the second route.
 
-**Decode** (entropy bytes -> raw RGB; the px branch of the reference's
-``_decode_device_v2``): a per-(plan, tables) :class:`_DecContext` holds
-the decode tables, IDCT operators and segment geometry on the decoder's
+**Decode** (entropy bytes -> raw frame; the reference's
+``_decode_device_v2``): a per-(plan, output, tables) :class:`_DecContext`
+holds the decode tables, IDCT operators and geometry on the decoder's
 device; :func:`decode_device` builds the destuffed segment rows on the
-host, uploads them and runs
+host, uploads them and takes one of two routes after D1 huffman_decode
+(ops/decode.py), the counterpart of K2's Huffman half, K4 and K5:
 
-    D1 huffman_decode (ops/decode.py) -> D2 idct_rgb (ops/dct.py)
+* three full-resolution components decoded to interleaved RGB
+  (:func:`decode_eligible`; the reference's px branch):
+
+      D1 -> D2 idct_rgb (ops/dct.py)
+
+* every other plan and output (any sampling, interleaved or not, 1/3/4
+  components, all 8 pixel formats, any colour pair; the reference's
+  plan tail: the scan reorder, ``dequant_idct_device``,
+  ``blocks_to_plane`` and ``postprocess``):
+
+      D1 -> D2p idct_planes (ops/dct.py) -> D3 postprocess_planes
+      (ops/preprocess.py)
 
 On a CUDA device each stage is a hand-written kernel; on the CPU each
 runs its plain torch version.
@@ -48,7 +60,8 @@ The reference's TPU machinery has no counterpart, and why:
   4 B of bit length and at most 448 B of E3 output, about 0.93 KB, so a
   16K 4:4:4 frame of 6.2M blocks needs about 5.8 GB of the H100's 80 GB;
 * vmap batching, perf_stats staging jits and XLA fallbacks, and on the
-  decode its seg_tile sizing, v2/v3 route and wcap buckets.
+  decode its seg_tile sizing, v2/v3 route (K4 or K5 by ``wcap``), wcap
+  buckets and slot templates: D1 takes any row width and block map.
 """
 from __future__ import annotations
 
@@ -60,13 +73,15 @@ import torch
 from ..plan import CoderPlan
 from ..tables import (
     decode_device_tables, device_tables, idct_operator_f32)
-from .dct import fdct_quant, fdct_quant_planes, idct_rgb
+from .dct import fdct_quant, fdct_quant_planes, idct_planes, idct_rgb
 from .decode import (
     build_dec_tables_v2, build_rows, huffman_decode, quant_slots,
     table_slots)
 from .entropy import build_seg_geometry, huffman_blocks, merge_stuff
 from .huffman_encode import compact_segments
-from .preprocess import plane_geometry, preprocess_planes, upload_raw
+from .preprocess import (
+    block_geometry, out_geometry, plane_geometry, postprocess_planes,
+    preprocess_planes, upload_raw)
 from .rgbpack import (
     pack_consts, pack_eligible, transform_consts_tensor, unpack_consts,
     unpack_eligible)
@@ -91,10 +106,11 @@ def rgb_eligible(plan: CoderPlan) -> bool:
 
 
 def decode_eligible(plan: CoderPlan, out_image) -> bool:
-    """True when the device decode covers this plan and output: restart
-    markers on, three full-resolution components, 4:4:4 interleaved RGB
-    output with an expressible inverse transform (``unpack_eligible``),
-    and one of the two scan orders of :func:`_scan_order_ok`."""
+    """True when the device decode takes the D2 route: restart markers
+    on, three full-resolution components, 4:4:4 interleaved RGB output
+    with an expressible inverse transform (``unpack_eligible``), and one
+    of the two scan orders of :func:`_scan_order_ok`. Every other plan
+    and output takes D2p + D3."""
     return (plan.params.restart_interval > 0
             and unpack_eligible(plan, out_image) and _scan_order_ok(plan))
 
@@ -216,15 +232,12 @@ DEC_CONTEXTS = 4
 
 class _DecContext:
     """The decode operands of one plan, output and table set: tables,
-    IDCT operators, inverse-transform constants and segment geometry."""
+    IDCT operators and segment geometry, then the D2 route's
+    inverse-transform constants or the plan tail's block and output
+    geometry."""
 
     def __init__(self, plan: CoderPlan, out_image, tables,
                  device: torch.device):
-        if not decode_eligible(plan, out_image):
-            raise NotImplementedError(
-                "the device decode covers 4:4:4 streams with restart "
-                "markers decoded to interleaved RGB; other plans and output "
-                "formats are not ported yet")
         self.plan = plan
         self.device = device
         self.tables = tables
@@ -236,20 +249,40 @@ class _DecContext:
         self.seg_start = t(plan.seg_block_start)
         self.seg_count = t(plan.seg_block_count)
         self.block_comp = t(plan.block_comp)
-        self.xf = transform_consts_tensor(unpack_consts(plan, out_image),
-                                          device)
-        self.interleaved = bool(plan.params.interleaved)
-        self.shape = (plan.image.height, plan.image.width)
+        self.rgb_route = decode_eligible(plan, out_image)
+        if self.rgb_route:
+            self.xf = transform_consts_tensor(
+                unpack_consts(plan, out_image), device)
+            self.interleaved = bool(plan.params.interleaved)
+            self.shape = (plan.image.height, plan.image.width)
+        else:
+            self.blocks = block_geometry(plan, device)
+            self.out = out_geometry(plan, out_image, device)
+
+    def coefficients(self, rows: torch.Tensor) -> torch.Tensor:
+        """(S, wcap) int32 rows -> (NB, 64) int32 scan-order coefficients
+        by D1."""
+        t = self.tables
+        return huffman_decode(rows, self.seg_start, self.seg_count,
+                              self.block_comp, t.quick, t.maxcode, t.delta,
+                              t.huffval, t.dc_slot, t.ac_slot)
+
+    def pixels(self, coeff: torch.Tensor) -> torch.Tensor:
+        """Scan-order coefficients -> the flat uint8 raw frame, by D2 or
+        by D2p + D3."""
+        t = self.tables
+        if self.rgb_route:
+            return idct_rgb(coeff, t.wq, t.q_of, self.xf, self.interleaved,
+                            *self.shape).view(-1)
+        b = self.blocks
+        return postprocess_planes(
+            idct_planes(coeff, t.wq, t.q_of, b.blk, b.block_plane_idx,
+                        b.total), self.out)
 
     def run(self, rows: torch.Tensor) -> torch.Tensor:
-        """(S, wcap) int32 rows on the context's device -> (H, W, 3)
-        uint8 pixels."""
-        t = self.tables
-        coeff = huffman_decode(rows, self.seg_start, self.seg_count,
-                               self.block_comp, t.quick, t.maxcode, t.delta,
-                               t.huffval, t.dc_slot, t.ac_slot)
-        return idct_rgb(coeff, t.wq, t.q_of, self.xf, self.interleaved,
-                        *self.shape)
+        """(S, wcap) int32 rows on the context's device -> the flat uint8
+        raw frame."""
+        return self.pixels(self.coefficients(rows))
 
 
 def _dec_context(cache: dict, plan: CoderPlan, info, dc_by_comp, ac_by_comp,
@@ -275,20 +308,20 @@ def _dec_context(cache: dict, plan: CoderPlan, info, dc_by_comp, ac_by_comp,
 def decode_device(decoder, plan: CoderPlan, info, scan_data,
                   segments_by_scan, dc_by_comp, ac_by_comp,
                   out_image) -> torch.Tensor:
-    """Run the device decode; returns the (H*W*3,) uint8 raw pixels on
-    the decoder's device and fills the decoder's upload and device
-    stats."""
+    """Run the device decode; returns the flat uint8 raw frame in the
+    output's pixel format on the decoder's device and fills the
+    decoder's upload and device stats."""
     ctx = _dec_context(decoder._contexts, plan, info, dc_by_comp, ac_by_comp,
                        out_image, decoder.device)
     rows = build_rows(plan, scan_data, segments_by_scan)
     t0 = time.perf_counter()
     rows_dev = torch.from_numpy(rows).to(ctx.device)
     t1 = time.perf_counter()
-    rgb = ctx.run(rows_dev)
+    raw = ctx.run(rows_dev)
     if ctx.device.type == "cuda":
         torch.cuda.synchronize(ctx.device)
     t2 = time.perf_counter()
     decoder.stats.bytes_memory_to = int(rows.nbytes)
     decoder.stats.duration_memory_to = (t1 - t0) * 1e3
     decoder.stats.duration_in_gpu = (t2 - t1) * 1e3
-    return rgb.view(-1)
+    return raw

@@ -23,6 +23,17 @@ planes concatenated in component order, which E1p
 is its plain torch version; the wrapper takes it only for tensors on the
 CPU. The device encode of interleaved RGB 4:4:4 input skips E0: its DCT
 kernel E1 reads the raw bytes itself.
+
+**D3** :func:`postprocess_planes` is E0's mirror, the device form of
+:func:`postprocess` for every pixel format, colour pair and sampling:
+the wrapper of ``csrc/postprocess.cu``. It replaces the XLA postprocess
+of the JAX reference's plan tail (``gpujpeg_tpu/ops/preprocess.py:173``,
+after K4 or K5 in ``jax_pipeline._decode_device_v2``) and reads the
+planes that D2p (``ops/dct.py:idct_planes``) writes, whose layout
+:func:`block_geometry` describes for both E1p and D2p.
+:func:`postprocess_planes_plain` is its plain torch version. The device
+decode of three full-resolution components to interleaved RGB skips D3:
+its IDCT kernel D2 writes the RGB bytes itself.
 """
 from __future__ import annotations
 
@@ -244,9 +255,42 @@ def upload_raw(raw, image: ImageParameters, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
+def _i32(a, device) -> torch.Tensor:
+    return torch.as_tensor(np.ascontiguousarray(a, np.int32), device=device)
+
+
 @dataclasses.dataclass(frozen=True)
-class PlaneGeometry:
-    """The operands of E0 and E1p for one plan, on one device."""
+class BlockGeometry:
+    """Where each scan-order block of a plan lies in its MCU-padded
+    component planes (concatenated in component order, each (data_height,
+    data_width) row-major): what E1p reads its blocks from and D2p writes
+    its pixels to, on one device."""
+
+    #: (C, 4) int32 per plane: byte offset, data width, first plane
+    #: block, blocks per row
+    blk: torch.Tensor
+    #: (NB,) int32 scan order -> plane order (``plan.block_plane_idx``)
+    block_plane_idx: torch.Tensor
+    total: int                    # bytes of all planes
+
+
+def block_geometry(plan: CoderPlan, device) -> BlockGeometry:
+    blk, off = [], 0
+    for c in plan.components:
+        blk.append((off, c.data_width, c.plane_block_offset,
+                    c.block_count_x))
+        off += c.data_width * c.data_height
+    if off >= 1 << 31:
+        raise ValueError(f"planes of {off} bytes are out of range")
+    return BlockGeometry(blk=_i32(blk, device),
+                         block_plane_idx=_i32(plan.block_plane_idx, device),
+                         total=off)
+
+
+@dataclasses.dataclass(frozen=True)
+class PlaneGeometry(BlockGeometry):
+    """The operands of E0 and E1p for one plan, on one device: the block
+    geometry and E0's own."""
 
     fmt: int                      # PixelFormat of the raw input
     height: int
@@ -262,12 +306,6 @@ class PlaneGeometry:
     src: torch.Tensor
     #: (PAIR_CONSTS,) int32 colour-pair constants (``pair_consts``)
     xf: torch.Tensor
-    total: int                    # bytes of all output planes
-    #: (C, 4) int32 per plane for E1p: byte offset, data width, first
-    #: plane block, blocks per row
-    blk: torch.Tensor
-    #: (NB,) int32 scan order -> plane order (``plan.block_plane_idx``)
-    block_plane_idx: torch.Tensor
 
 
 def plane_geometry(plan: CoderPlan, device) -> PlaneGeometry:
@@ -278,7 +316,7 @@ def plane_geometry(plan: CoderPlan, device) -> PlaneGeometry:
     n_ch = (4 if desc.comp_count == 4 or img.comp_count == 4 else 3) \
         if pf in (PixelFormat.PF_444_U8_P012Z, PixelFormat.PF_444_U8_P012A) \
         else desc.comp_count
-    comp, blk, off = [], [], 0
+    comp, off = [], 0
     for c in plan.components:
         # subsample by selection, as ``preprocess`` does
         rx = -(-W // c.width) if c.width else 1
@@ -287,21 +325,15 @@ def plane_geometry(plan: CoderPlan, device) -> PlaneGeometry:
         cols_sel = min(c.width, -(-W // rx))
         comp.append((off, c.data_width, c.data_height, rows_sel, cols_sel,
                      ry, rx, c.index))
-        blk.append((off, c.data_width, c.plane_block_offset,
-                     c.block_count_x))
         off += c.data_width * c.data_height
     src = _planar_inputs(img) if pf in _PLANAR else [(0,) * SRC_COLS] * 3
-
-    def t(a):
-        return torch.as_tensor(np.ascontiguousarray(a, np.int32),
-                               device=device)
-
+    b = block_geometry(plan, device)
     return PlaneGeometry(
+        blk=b.blk, block_plane_idx=b.block_plane_idx, total=b.total,
         fmt=int(pf), height=H, width=W, n_ch=n_ch, raw_bytes=raw_size(img),
-        comp=t(comp), src=t(src),
-        xf=t(pair_consts(img.color_space, plan.params.color_space_internal,
-                         n_ch)),
-        total=off, blk=t(blk), block_plane_idx=t(plan.block_plane_idx))
+        comp=_i32(comp, device), src=_i32(src, device),
+        xf=_i32(pair_consts(img.color_space,
+                            plan.params.color_space_internal, n_ch), device))
 
 
 def _check_e0(raw: torch.Tensor, g: PlaneGeometry) -> None:
@@ -385,3 +417,146 @@ def preprocess_planes_plain(raw: torch.Tensor,
         cols = torch.clamp(torch.arange(dw, device=dev), max=cols_sel - 1) * rx
         parts.append(chans[idx][rows][:, cols].reshape(-1))
     return torch.cat(parts).to(torch.uint8)
+
+
+# ---------------------------------------------------------------------------
+# D3: the device postprocessor
+# ---------------------------------------------------------------------------
+
+#: columns of :attr:`OutGeometry.comp`
+OUT_COLS = 6
+
+
+@dataclasses.dataclass(frozen=True)
+class OutGeometry:
+    """The operands of D3 for one plan and output image, on one device."""
+
+    fmt: int                      # PixelFormat of the raw output
+    height: int
+    width: int
+    raw_bytes: int                # bytes of the raw output (``raw_size``)
+    total: int                    # bytes of the input planes
+    #: (C, OUT_COLS) int32 per input plane: byte offset, data width,
+    #: component rows and columns, row and column replication to full
+    #: resolution (``ceil(H / rows)``, ``ceil(W / columns)``)
+    comp: torch.Tensor
+    #: (3, SRC_COLS) int32 per output plane of a planar format: byte
+    #: offset, width, height, column and row selection step (zeros
+    #: otherwise)
+    dst: torch.Tensor
+    #: (PAIR_CONSTS,) int32 colour-pair constants, stream colour space to
+    #: the output's (``pair_consts``)
+    xf: torch.Tensor
+
+
+def out_geometry(plan: CoderPlan, out_image: ImageParameters,
+                 device) -> OutGeometry:
+    """D3's operands. Raises ValueError for what ``postprocess`` cannot
+    pack either: UYVY or planar output of fewer than 3 components, UYVY
+    of odd width above 1, or sizes past 32-bit indexing."""
+    pf = PixelFormat(out_image.pixel_format)
+    H, W = out_image.height, out_image.width
+    C = len(plan.components)
+    if C < 3 and (pf == PixelFormat.PF_422_U8_P1020 or pf in _PLANAR):
+        raise ValueError(f"{pf.name} output needs 3 components, the stream "
+                         f"has {C}")
+    if pf == PixelFormat.PF_422_U8_P1020 and W % 2 and W > 1:
+        raise ValueError("PF_422_U8_P1020 needs an even width (or 1)")
+    comp, off = [], 0
+    for c in plan.components:
+        comp.append((off, c.data_width, c.height, c.width,
+                     -(-H // c.height) if c.height else 1,
+                     -(-W // c.width) if c.width else 1))
+        off += c.data_width * c.data_height
+    n = raw_size(out_image)
+    if max(off, n, 4 * H * W) >= 1 << 31:
+        raise ValueError(f"{W}x{H} output of {n} bytes from {off} bytes of "
+                         "planes is out of range")
+    dst = _planar_inputs(out_image) if pf in _PLANAR \
+        else [(0,) * SRC_COLS] * 3
+    return OutGeometry(
+        fmt=int(pf), height=H, width=W, raw_bytes=n, total=off,
+        comp=_i32(comp, device), dst=_i32(dst, device),
+        xf=_i32(pair_consts(plan.params.color_space_internal,
+                            out_image.color_space, C), device))
+
+
+def _check_d3(planes: torch.Tensor, g: OutGeometry) -> None:
+    if planes.dtype != torch.uint8 or tuple(planes.shape) != (g.total,):
+        raise ValueError(f"planes must be ({g.total},) uint8, got "
+                         f"{tuple(planes.shape)} {planes.dtype}")
+    C = g.comp.shape[0]
+    for name, t, shape in (("comp", g.comp, (C, OUT_COLS)),
+                           ("dst", g.dst, (3, SRC_COLS)),
+                           ("xf", g.xf, (PAIR_CONSTS,))):
+        if tuple(t.shape) != shape or t.dtype != torch.int32:
+            raise ValueError(f"{name} must be {shape} int32, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+    for t in (planes, g.comp, g.dst, g.xf):
+        if t.device != planes.device:
+            raise ValueError("all operands must be on one device")
+        if not t.is_contiguous():
+            raise ValueError("operands must be contiguous")
+    if not 1 <= C <= 4:
+        raise ValueError(f"{C} planes are out of range")
+
+
+def postprocess_planes(planes: torch.Tensor, g: OutGeometry) -> torch.Tensor:
+    """(g.total,) uint8 MCU-padded component planes (D2p's output, E0's
+    layout) -> (g.raw_bytes,) uint8 raw frame in the output's pixel
+    format and colour space: ``postprocess`` of the planes."""
+    _check_d3(planes, g)
+    if planes.device.type == "cpu":
+        return postprocess_planes_plain(planes, g)
+    if planes.device.type != "cuda":
+        raise ValueError(f"unsupported device {planes.device}")
+    out = torch.empty((g.raw_bytes,), dtype=torch.uint8, device=planes.device)
+    lib = _build.load_kernels()
+    err = lib.gj_postprocess_planes(
+        planes.data_ptr(), g.fmt, g.height, g.width, g.comp.data_ptr(),
+        g.comp.shape[0], g.dst.data_ptr(), g.xf.data_ptr(), out.data_ptr(),
+        g.raw_bytes, torch.cuda.current_stream(planes.device).cuda_stream)
+    _build.check_launch("gj_postprocess_planes", err)
+    postprocess_planes.launches += 1
+    return out
+
+
+postprocess_planes.launches = 0
+
+
+def postprocess_planes_plain(planes: torch.Tensor,
+                             g: OutGeometry) -> torch.Tensor:
+    """Plain torch version of :func:`postprocess_planes`: ``postprocess``
+    written in torch (crop, replication, ``apply_pair``, ``pack_raw``)."""
+    H, W = g.height, g.width
+    chans = []
+    for off, dw, h, w, ry, rx in g.comp.tolist():
+        plane = planes[off:off + h * dw].view(h, dw)[:, :w].to(torch.int32)
+        chans.append(plane.repeat_interleave(ry, dim=0)
+                     .repeat_interleave(rx, dim=1)[:H, :W])
+    chans = apply_pair(chans, g.xf.tolist())
+    pf, dev = PixelFormat(g.fmt), planes.device
+    if pf == PixelFormat.U8:
+        return chans[0].to(torch.uint8).reshape(-1)
+    if pf == PixelFormat.PF_422_U8_P1020:
+        y, u, v = chans[:3]
+        out = torch.empty((H, 2 * W), dtype=torch.uint8, device=dev)
+        out[:, 1::2] = y
+        out[:, 0::4] = u[:, ::2]
+        out[:, 2::4] = v[:, ::2]
+        return out.reshape(-1)
+    if pf in _PLANAR:
+        parts = []
+        for ch, (_, cw, rows, rx, ry) in zip(chans, g.dst.tolist()):
+            r = torch.clamp(torch.arange(rows, device=dev) * ry, max=H - 1)
+            c = torch.clamp(torch.arange(cw, device=dev) * rx, max=W - 1)
+            parts.append(ch[r][:, c].reshape(-1))
+        return torch.cat(parts).to(torch.uint8)
+    # interleaved 4:4:4: the channels pack_raw takes, the rest filled
+    n = 4 if pf == PixelFormat.PF_444_U8_P012A and len(chans) >= 4 else 3
+    fill = 255 if pf == PixelFormat.PF_444_U8_P012A and n == 3 else 0
+    step = 3 if pf == PixelFormat.PF_444_U8_P012 else 4
+    out = torch.full((H, W, step), fill, dtype=torch.uint8, device=dev)
+    for c, ch in enumerate(chans[:n]):
+        out[..., c] = ch
+    return out.reshape(-1)

@@ -414,7 +414,7 @@ class DecodeTables:
     dc_slot: "torch.Tensor"  # (4,) component -> DC table slot
     ac_slot: "torch.Tensor"  # (4,) component -> AC table slot
     wq: "torch.Tensor"       # (n_q, 64, 64) float32 IDCT operators
-    q_of: "torch.Tensor"     # (3,) component -> wq index
+    q_of: "torch.Tensor"     # (C,) component -> wq index
 
 
 def decode_device_tables(dec, dc_slot, ac_slot, wq, q_of,

@@ -2,7 +2,8 @@
 against the JAX package: coefficients against the golden decoder, pixels
 against the JAX IDCT tail, and whole decodes against the JAX decoder
 running K2/K3 (and K4) in Pallas interpret mode, corrupt streams
-included."""
+included. The plan tail (D2p + D3) has its own file,
+``test_torch_decode_general.py``."""
 import numpy as np
 import pytest
 import torch
@@ -17,7 +18,7 @@ from gpujpeg_tpu.ops import golden as ref_golden
 from gpujpeg_tpu.ops import jax_pipeline as ref_jp
 from gpujpeg_tpu.stream.reader import read_image as ref_read_image
 from gpujpeg_tpu_torch.models.decoder import huffman_maps
-from gpujpeg_tpu_torch.ops import decode, dct, pipeline
+from gpujpeg_tpu_torch.ops import decode, dct, pipeline, preprocess as pre
 from gpujpeg_tpu_torch.stream.reader import read_image
 from gpujpeg_tpu_torch.tables import idct_dequant_matrix
 
@@ -105,6 +106,53 @@ def _assert_ties(got, expect, coeff, plan, info):
                       W64[:, p].T) + 128.0
         dist = np.minimum(dist, np.abs(y - np.floor(y) - 0.5))
     assert dist.max() < TIE_EPS, dist.max()
+
+
+def _assert_plane_ties(got, expect, coeff, plan, info):
+    """Two flat plane arrays of one plan (D2p's layout: every component's
+    MCU-padded plane, concatenated) may differ only by 1, where the
+    float64 IDCT value of the component lies within TIE_EPS of .5, on at
+    most MAX_TIE_SHARE of the values."""
+    got, expect = np.asarray(got), np.asarray(expect)
+    assert got.shape == expect.shape
+    d = np.abs(got.astype(np.int64) - expect.astype(np.int64))
+    idx = np.flatnonzero(d)
+    if idx.size == 0:
+        return
+    assert d.max() <= 1
+    assert idx.size <= MAX_TIE_SHARE * got.size
+    inv = np.empty(plan.n_blocks, np.int64)
+    inv[plan.block_plane_idx] = np.arange(plan.n_blocks)
+    coeff = np.asarray(coeff)
+    off = 0
+    for c in plan.components:
+        n = c.data_width * c.data_height
+        local = idx[(idx >= off) & (idx < off + n)] - off
+        r, col = local // c.data_width, local % c.data_width
+        pb = c.plane_block_offset + (r // 8) * c.block_count_x + col // 8
+        p = (r % 8) * 8 + col % 8
+        W64 = idct_dequant_matrix(np.asarray(
+            info.quant_tables[info.components[c.index].quant_table_index]))
+        y = np.einsum("nk,nk->n", coeff[inv[pb]].astype(np.float64),
+                      W64[:, p].T) + 128.0
+        assert np.all(np.abs(y - np.floor(y) - 0.5) < TIE_EPS)
+        off += n
+
+
+def _golden_planes(info, plan, coeff):
+    """The JAX package's golden decoder's flat planes (float64 IDCT) of
+    scan-order coefficients, in D2p's layout."""
+    from gpujpeg_tpu.ops.blocks import blocks_to_plane
+    coeff = np.asarray(coeff)
+    coeff_plane = np.empty_like(coeff)
+    coeff_plane[plan.block_plane_idx] = coeff
+    return np.concatenate([
+        blocks_to_plane(ref_golden.dequant_idct(
+            coeff_plane[c.plane_block_offset:
+                        c.plane_block_offset + c.block_count],
+            info.quant_tables[info.components[c.index].quant_table_index]),
+            c.data_height, c.data_width, np).reshape(-1)
+        for c in plan.components])
 
 
 # ---------------------------------------------------------------------------
@@ -288,17 +336,37 @@ def test_init_warms_the_context_of_the_first_decode():
 
 
 @pytest.mark.parametrize("case", ["subsampled", "grayscale"])
-def test_plans_outside_the_slice_raise(case):
+def test_formerly_unsupported_plans_decode(case):
+    """Two plans that the decode main path's slice refused now take the
+    plan tail (D1 -> D2p -> D3) and match the golden decoder: the planes
+    within .5 IDCT ties, the output D3 of the planes."""
     if case == "subsampled":
         data = _stream(64, 128, 85, 1, interleaved=True, sub=420)
     else:
         data = _stream(64, 80, 85, 2)
     dec = port.Decoder(backend="torch", device="cpu")
+    gold = port.Decoder(backend="golden")
     if case == "grayscale":
-        dec.set_output_format(port.YCBCR_JPEG, port.PixelFormat.U8)
-    assert read_image(data).restart_interval > 0
-    with pytest.raises(NotImplementedError):
-        dec.decode(data)
+        for d in (dec, gold):
+            d.set_output_format(port.YCBCR_JPEG, port.PixelFormat.U8)
+    info, plan, ctx, rows = _port_parts(data)
+    assert info.restart_interval > 0
+    assert plan.n_segments >= dmod.CPU_SEGMENT_THRESHOLD  # no golden route
+    raw, oi = dec.decode(data)
+    expect, _ = gold.decode(data)
+    assert raw.shape == expect.shape
+
+    coeff = _d1(ctx, rows)
+    b = pre.block_geometry(plan, CPU)
+    t = ctx.tables
+    planes = dct.idct_planes(coeff, t.wq, t.q_of, b.blk, b.block_plane_idx,
+                             b.total).numpy()
+    gold_planes = _golden_planes(info, plan, coeff)
+    _assert_plane_ties(planes, gold_planes, coeff, plan, info)
+    np.testing.assert_array_equal(raw, pre.postprocess_planes(
+        torch.from_numpy(planes), pre.out_geometry(plan, oi, CPU)).numpy())
+    if np.array_equal(planes, gold_planes):
+        np.testing.assert_array_equal(raw, expect)
 
 
 def test_round_trip_matches_golden_round_trip():

@@ -86,3 +86,60 @@ def test_unknown_backends_raise():
         port.Encoder(backend="jax")
     with pytest.raises(ValueError):
         port.Decoder(backend="jax")
+
+
+_FAKE_NVCC = '''#!{python}
+import os, sys, time
+args = sys.argv[1:]
+out = args[args.index("-o") + 1]
+log = os.environ["FAKE_NVCC_DIR"]
+if "-c" in args:
+    src = os.path.basename(args[-1])
+    open(os.path.join(log, "started-" + src), "w").close()
+    t0 = time.time()
+    while sum(f.startswith("started-") for f in os.listdir(log)) \\
+            < int(os.environ["FAKE_NVCC_N"]):
+        if time.time() - t0 > 60:
+            sys.exit("the compiles did not run together")
+        time.sleep(0.01)
+    if src == os.environ.get("FAKE_NVCC_FAIL"):
+        sys.exit("error in " + src)
+else:
+    with open(os.path.join(log, "link"), "w") as f:
+        f.write(" ".join(args))
+open(out, "w").close()
+'''
+
+
+def test_kernel_build_runs_one_nvcc_per_source_together(tmp_path,
+                                                         monkeypatch):
+    """The kernel library builds with one ``nvcc -c`` per ``csrc`` source,
+    all running at once (each stand-in compile waits for all the others
+    to start), then one link; a failing source is named and leaves no
+    library."""
+    from gpujpeg_tpu_torch import _build
+    n = len(_build._sources())
+    fake = tmp_path / "nvcc"
+    fake.write_text(_FAKE_NVCC.format(python=sys.executable))
+    fake.chmod(0o755)
+    monkeypatch.setenv("NVCC", str(fake))
+    monkeypatch.setenv("FAKE_NVCC_N", str(n))
+    for case in ("ok", "fail"):
+        log = tmp_path / f"log-{case}"
+        log.mkdir()
+        build = tmp_path / f"build-{case}"
+        monkeypatch.setenv("FAKE_NVCC_DIR", str(log))
+        monkeypatch.setenv("GPUJPEG_TPU_TORCH_BUILD_DIR", str(build))
+        if case == "ok":
+            so = _build.library_path()
+            assert os.path.exists(so)
+            link = (log / "link").read_text().split()
+            assert "-shared" in link and "sm_90a" in " ".join(link)
+            assert sum(a.endswith(".o") for a in link) == n
+        else:
+            monkeypatch.setenv("FAKE_NVCC_FAIL", "postprocess.cu")
+            with pytest.raises(RuntimeError, match="postprocess.cu"):
+                _build.library_path()
+        assert len(list(log.glob("started-*.cu"))) == n
+        assert sorted(p.name for p in build.iterdir()) == (
+            [os.path.basename(so)] if case == "ok" else [])
