@@ -67,7 +67,18 @@ the first failure:
    stage times;
 12. every output format x {4:4:4, 4:2:0 interleaved, 4:2:2, gray} x
    {17x13, 200x136} decoded on the card and through the CPU plain path
-   (no golden route), equal outside .5 IDCT ties.
+   (no golden route), equal outside .5 IDCT ties;
+13. the stage-1 probe tools (``gpujpeg_tpu_torch/tools/``) at 8K, their
+   kernels' launches counted on the tools' own paths: (i) E12
+   dct_huffman_blocks (K12) against its plain version on perf_stage1's
+   inputs (W = 4 words a block, every string cut), equal but in blocks
+   at a .5 tie of their float64 quotients (at most 1e-6 of them); (ii)
+   E12 + E3 against E1p -> E2 -> E3 on E0's planes of phase 3's frame,
+   equal in every segment without a .5 tie, with E12's time beside E1p +
+   E2's; (iii) each of E12's stop modes against its plain version on
+   ablate_stage1's inputs, with its time; (iv) copy_bytes byte-exact,
+   its rate beside ``Tensor.clone()``'s and the bound; (v) E0 on
+   perf_rgbpack's frame equal to its plain version, beside the copy.
 
 The line before the last is a JSON object with every kernel's numbers
 (its time, plain time, bound and launches on its path); the last line is
@@ -1506,6 +1517,252 @@ def phase_small_decode(gj) -> None:
           f"the CPU plain path's, the others outside .5 ties", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the stage-1 probes (E12, its stop modes, copy_bytes, E0 as S3)
+# ---------------------------------------------------------------------------
+
+REPLACES_K12 = "gpujpeg_tpu/ops/entropy_v2.py:637"
+REPLACES_S1 = "scripts/perf_stage1.py:77"
+REPLACES_S2 = "scripts/ablate_stage1.py:193"
+REPLACES_S3 = "scripts/perf_rgbpack.py:47"
+#: E12 (and its stop modes) vs plain: share of blocks that may differ,
+#: each at a .5 tie of its float64 quotients
+E12_MAX_TIE_SHARE = 1e-6
+
+
+def e12_mismatch(kern, plain, cap_words: int, stop: str) -> torch.Tensor:
+    """(NB,) bool: blocks whose E12 outputs differ from the plain
+    version's (the walking modes compare the words a string fills)."""
+    (words, bits), (words_p, bits_p) = kern, plain
+    if stop in ("lookups", "full"):
+        n = (torch.clamp(bits, max=32 * cap_words) + 31) // 32
+        used = (torch.arange(cap_words, device=bits.device)[None, :]
+                < n[:, None])
+        return ((words != words_p) & used).any(1) | (bits != bits_p)
+    return (words != words_p).any(1) | (bits != bits_p)
+
+
+def e12_tie_check(what: str, blocks, qsel, qdiv, bad, stop: str) -> int:
+    """Fails unless at most E12_MAX_TIE_SHARE of the blocks differ and
+    each holds, among the values its output reads, one at a tie of its
+    float64 value (PERF.md section 2's width): a .5 tie of the quotient
+    (``dctmul``: of y times the divisor), an integer y (``dctonly``). The
+    walking modes read a block's own AC quotients, the pair-row modes
+    values 0..7 of the pair's left block (1..7 in ``synth``, whose DC is
+    given); returns the count."""
+    from gpujpeg_tpu_torch.tables import dct_zigzag_operator
+    rows = torch.nonzero(bad)[:, 0]
+    n = int(rows.numel())
+    if n == 0:
+        return 0
+    walking = stop in ("lookups", "full")
+    if not walking:
+        rows = rows - (rows & 1)
+    D64, bias64 = dct_zigzag_operator()
+    D = torch.as_tensor(D64, device=blocks.device)
+    bias = torch.as_tensor(bias64, device=blocks.device)
+    x = blocks[rows].double()
+    q = qdiv.double()[qsel[rows].long()]
+    y = x @ D - bias
+    eps = F32_DOT_REL * (x @ D.abs() + bias.abs())
+    if stop == "dctonly":
+        tie = torch.abs(y - torch.round(y)) <= eps
+    else:
+        v, w = (y * q, eps * q) if stop == "dctmul" else (y / q, eps / q)
+        tie = torch.abs(torch.abs(v - torch.floor(v)) - 0.5) <= w
+    tie = tie[:, 1:] if walking else tie[:, int(stop == "synth"):8]
+    if n > E12_MAX_TIE_SHARE * blocks.shape[0] or not bool(tie.any(1).all()):
+        fail(f"{what}: {n} blocks differ from the plain version, not all "
+             "at ties or more than the share allowed")
+    return n
+
+
+def phase_stage1(gj, img: np.ndarray, card: str) -> tuple[list, dict]:
+    """Phase 13: the port's stage-1 probe tools at 8K (their launch
+    counts), then (i) E12 against its plain version on perf_stage1's
+    inputs, (ii) E12 + E3 against E1p -> E2 -> E3 on E0's planes of
+    phase 3's frame, (iii) each stop mode against its plain version on
+    ablate_stage1's inputs, (iv) copy_bytes byte-exact, beside clone(),
+    (v) E0 on perf_rgbpack's frame against its plain version ((iv) and
+    (v) are checked by the tools' own runs, which raise). Returns the
+    kernels' rows and launches."""
+    from gpujpeg_tpu_torch.ops import dct, entropy, preprocess as pre
+    from gpujpeg_tpu_torch.tools import (
+        ablate_stage1, perf_rgbpack, perf_stage1)
+    dev = torch.device("cuda")
+    e12 = entropy.dct_huffman_blocks
+    copy = perf_stage1.copy_bytes
+    t0 = time.perf_counter()
+
+    # the tools' paths, each driven with its counts at 0
+    e12.launches = dict.fromkeys(entropy.STOP_MODES, 0)
+    copy.launches = 0
+    inp = perf_stage1.make_inputs(perf_stage1.STAGES, H8K, W8K, dev)
+    tool = {r["stage"]: r for r in perf_stage1.run(inp, perf_stage1.STAGES,
+                                                   dev, 10)}
+    launches = {"dct_huffman_blocks": e12.launches["full"],
+                "copy_bytes": copy.launches}
+    e12.launches = dict.fromkeys(entropy.STOP_MODES, 0)
+    ab_args, W = ablate_stage1.make_inputs(H8K, W8K, dev)
+    ab = {r["stage"]: r for r in ablate_stage1.run(
+        ab_args, W, entropy.STOP_MODES, dev, 10)}
+    launches.update({f"dct_huffman_blocks[{m}]": e12.launches[m]
+                     for m in entropy.STOP_MODES})
+    pre.preprocess_planes.launches = 0
+    frame = perf_rgbpack.make_frame(H8K, W8K)
+    rg = {r["stage"]: r for r in perf_rgbpack.run(frame, ("pack",), dev, 10)}
+    launches["preprocess_planes[S3]"] = pre.preprocess_planes.launches
+    for name, r in (("perf_stage1", tool["copy"]), ("perf_stage1",
+                                                    tool["stage1"]),
+                    ("perf_stage1", tool["merge"]), ("perf_rgbpack",
+                                                     rg["pack"])):
+        print(f"phase 13: {card}: {name} {r}", flush=True)
+    print(f"phase 13: {card}: ablate_stage1 "
+          f"{ {m: r['ms'] for m, r in ab.items()} } ms", flush=True)
+    print(f"phase 13: launches on the tools' paths {launches}", flush=True)
+    if min(launches.values()) < 1:
+        fail(f"a kernel of the tools' paths did not launch: {launches}")
+
+    rows = []
+
+    def row(name, src, repl, ms, plain_ms, err, bnd, library_ms=None):
+        rows.append({"name": name, "route": "cuda",
+                     "source": f"gpujpeg_tpu_torch/csrc/{src}",
+                     "replaces": repl, "launches": 0, "max_abs_err": err,
+                     "ms": ms, "plain_ms": plain_ms, **bnd,
+                     "library_ms": library_ms})
+
+    # (i) E12 with cap_words = W against its plain version
+    args = perf_stage1.e12_args(inp, W)
+    out = e12(*args)
+    plain, plain_ms = cuda_ms_once(lambda: entropy.dct_huffman_blocks_plain(
+        *args))
+    bad = e12_mismatch(out, plain, W, "full")
+    n_bad = e12_tie_check("(i) E12", args[0], args[4], args[5], bad, "full")
+    err = int((out[1] - plain[1]).abs().max())
+    NB = args[0].shape[0]
+    print(f"phase 13 (i): E12 dct_huffman_blocks on perf_stage1's {NB} "
+          f"blocks, W {W}: {n_bad} blocks differ from the plain version "
+          f"(each at a .5 tie), {int((out[1] > 32 * W).sum())} strings cut "
+          f"at {32 * W} bits; {card}: {tool['stage1']['ms']:.4f} ms, plain "
+          f"{plain_ms:.4f} ms", flush=True)
+    e12_bytes = nbytes(*args[:10], *out)
+    row("dct_huffman_blocks", "dct_huffman_blocks.cu", REPLACES_K12,
+        tool["stage1"]["ms"], plain_ms, err,
+        bound(e12_bytes, NB * DCT_BLOCK_FLOPS))
+    del out, plain, bad
+
+    # (ii) E12 (cap BLOCK_CAP_WORDS) + E3 against E1p -> E2 -> E3; E12 is
+    # timed on blocks gathered in scan order beforehand and with that
+    # gather (plain torch), which E1p does inside its kernel
+    params, image, plan = setup(gj, H8K, W8K)
+    ctx = context(gj, params, image)
+    t, g, geo = ctx.tables, ctx.planes, ctx.geo
+    planes = pre.preprocess_planes(pre.upload_raw(img, image, dev), g)
+    e1p = (planes, t.dct, t.bias, ctx.qdiv, g.blk, g.block_plane_idx)
+    coeff = dct.fdct_quant_planes(*e1p)
+    blocks, comp = dct.scan_order_blocks(planes, g.blk, g.block_plane_idx)
+    comp = comp.to(torch.int32)
+    dc = coeff[:, 0].long()
+    pred = geo.dc_pred.long()
+    diff = (dc - torch.where(pred < 0, 0, dc[pred.clamp(min=0)])).int()
+    ones = torch.ones_like(diff)
+    fused = (blocks, diff, geo.block_cls, ones, comp, ctx.qdiv, t.dct,
+             t.bias, t.ac512, t.dc64, entropy.BLOCK_CAP_WORDS)
+    seg = (geo.seg_start, geo.seg_count, geo.rst, geo.has_rst, geo.cap_out)
+    got = entropy.merge_stuff(*e12(*fused), *seg)
+    want = ctx.entropy(coeff)
+    valid = (torch.arange(geo.cap_out, device=dev)[None, :]
+             < want[1][:, None])
+    seg_bad = (got[1] != want[1]) | ((got[0] != want[0]) & valid).any(1)
+    bad_segs = set(torch.nonzero(seg_bad)[:, 0].tolist())
+    if bad_segs:
+        y64, eps = golden_quotients(img.reshape(-1), image, plan,
+                                    gj.Encoder(backend="golden")._tables(
+                                        params)[0])
+        tie_rows = np.abs(np.abs(y64 - np.floor(y64)) - 0.5) <= eps
+        tie_segs = set(plan.block_segment[np.nonzero(tie_rows.any(1))[0]]
+                       .tolist())
+        if bad_segs - tie_segs:
+            fail(f"(ii): E12 + E3 differs from E1p -> E2 -> E3 in segments "
+                 f"{sorted(bad_segs - tie_segs)[:10]} without a .5 tie")
+    fused_ms = cuda_ms(lambda: e12(*fused), 10)
+    gather_ms = cuda_ms(lambda: e12(dct.scan_order_blocks(
+        planes, g.blk, g.block_plane_idx)[0], *fused[1:]), 10)
+    two_ms = cuda_ms(lambda: entropy.huffman_blocks(
+        dct.fdct_quant_planes(*e1p), geo.dc_pred, geo.block_cls, t.ac512,
+        t.dc64), 10)
+    print(f"phase 13 (ii): E12 + E3 on E0's planes of phase 3's frame: "
+          f"{len(bad_segs)} of {plan.n_segments} segments differ from E1p "
+          f"-> E2 -> E3 ({int(want[1].sum())} bytes); {card}: E12 (cap "
+          f"{entropy.BLOCK_CAP_WORDS} words) {fused_ms:.4f} ms on blocks "
+          f"gathered beforehand, {gather_ms:.4f} ms with the plain scan-"
+          f"order gather, E1p + E2 {two_ms:.4f} ms: fusion saves "
+          f"{two_ms - fused_ms:.4f} ms without the gather, "
+          f"{two_ms - gather_ms:.4f} ms with it", flush=True)
+    del ctx, planes, coeff, blocks, got, want, valid
+    torch.cuda.empty_cache()
+
+    # (iii) each stop mode against its plain version on ablate's inputs
+    NBa = ab_args[0].shape[0]
+    for m in entropy.STOP_MODES:
+        out = e12(*ab_args, W, m)
+        plain = entropy.dct_huffman_blocks_plain(*ab_args, W, m)
+        bad = e12_mismatch(out, plain, W, m)
+        if m in ("io", "passthru"):
+            n_bad = int(bad.sum())
+            if n_bad:
+                fail(f"(iii): E12[{m}] differs from its plain version in "
+                     f"{n_bad} blocks")
+        else:
+            n_bad = e12_tie_check(f"(iii) E12[{m}]", ab_args[0], ab_args[4],
+                                  ab_args[5], bad, m)
+        err = int((out[1] - plain[1]).abs().max())
+        p_ms = cuda_ms(lambda: entropy.dct_huffman_blocks_plain(
+            *ab_args, W, m), 1)
+        print(f"phase 13 (iii): E12[{m}] on ablate_stage1's {NBa} blocks: "
+              f"{n_bad} blocks differ from the plain version (at ties); "
+              f"{card}: {ab[m]['ms']:.4f} ms, plain {p_ms:.4f} ms",
+              flush=True)
+        row(f"dct_huffman_blocks[{m}]", "dct_huffman_blocks.cu", REPLACES_S2,
+            ab[m]["ms"], p_ms, err,
+            bound(nbytes(*ab_args[:5], *out), 0) if m in ("io", "passthru")
+            else
+            bound(nbytes(*ab_args, *out), NBa * DCT_BLOCK_FLOPS))
+        del out, plain, bad
+
+    # (iv) copy_bytes (the tool held it to its input), beside clone()
+    x = torch.as_tensor(inp.copy_src, device=dev)
+    c = tool["copy"]
+    p_ms = cuda_ms(lambda: perf_stage1.copy_bytes_plain(x), 10)
+    bnd = bound(2 * x.numel())
+    print(f"phase 13 (iv): copy_bytes {x.numel()} bytes byte-exact; {card}: "
+          f"{c['ms']:.4f} ms ({2 * x.numel() / c['ms'] / 1e9:.4f} TB/s), clone() "
+          f"{c['clone_ms']:.4f} ms ({2 * x.numel() / c['clone_ms'] / 1e9:.4f} "
+          f"TB/s), bound {bnd['bound_ms']:.4f} ms", flush=True)
+    row("copy_bytes", "copy_bytes.cu", REPLACES_S1, c["ms"], p_ms, 0, bnd,
+        c["clone_ms"])
+
+    # (v) E0 on perf_rgbpack's frame (the tool held it to its plain version)
+    plan = perf_stage1.stage1_plan(H8K, W8K)[0]
+    g = pre.plane_geometry(plan, dev)
+    raw = pre.upload_raw(frame.reshape(-1), plan.image, dev)
+    words = perf_rgbpack.plane_words(pre.preprocess_planes(raw, g), H8K, W8K)
+    p_ms = cuda_ms(lambda: pre.preprocess_planes_plain(raw, g), 2)
+    print(f"phase 13 (v): E0 on perf_rgbpack's frame: {rg['pack']['words']} "
+          f"words equal to the plain version's; {card}: "
+          f"{rg['pack']['ms']:.4f} ms, plain {p_ms:.4f} ms, copy_bytes of "
+          f"the same {raw.numel()} bytes {tool['copy']['ms']:.4f} ms",
+          flush=True)
+    row("preprocess_planes[S3]", "preprocess.cu", REPLACES_S3,
+        rg["pack"]["ms"], p_ms, 0,
+        bound(nbytes(raw, g.comp, g.src, g.xf, words)))
+    del inp, ab_args, x, raw, words
+    torch.cuda.empty_cache()
+    print(f"phase 13: {time.perf_counter() - t0:.1f} s", flush=True)
+    return rows, launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a "
@@ -1565,6 +1822,9 @@ def main() -> None:
         "huffman_decode[K4 regime (a)]": dl["a"]["huffman_decode"],
         "huffman_decode[K5 regime (e)]": dl["e"]["huffman_decode"]})
     phase_small_decode(gj)
+    srows, slaunches = phase_stage1(gj, img, card)
+    rows += srows
+    launches.update(slaunches)
     for r in rows:
         r["launches"] = launches[r["name"]]
     print(json.dumps({"kernels": rows}), flush=True)

@@ -2,7 +2,8 @@
 
 All ``csrc/*.cu`` sources compile with ``nvcc`` for ``sm_90a`` into one
 shared library with a plain C interface, which is loaded with ctypes.
-The library is named by a digest of the sources and kept in
+The library is named by a digest of the sources and the headers they
+include (``csrc/*.cuh``) and kept in
 :func:`runtime.kernel_build_dir`, so a second process reuses it. The
 first call of :func:`load_kernels` in a checkout builds it: one ``nvcc``
 per source, all started together, then one link (a few seconds in
@@ -31,6 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 
 #: C entry -> argument types (pointers and the stream as c_void_p)
 SIGNATURES = {
@@ -46,6 +48,9 @@ SIGNATURES = {
     "gj_fdct_quant_planes": [_P, _P, _I, _P, _I, _P, _P, _P, _P, _P],
     "gj_idct_planes": [_P, _I, _P, _I, _P, _P, _I, _P, _P, _P],
     "gj_postprocess_planes": [_P, _I, _I, _I, _P, _I, _P, _P, _P, _I, _P],
+    "gj_dct_huffman_blocks": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                              _I, _I, _P, _P, _P],
+    "gj_copy_bytes": [_P, _P, _L, _P],
 }
 
 
@@ -67,7 +72,7 @@ def library_path() -> str:
     """Build the kernel library if needed; return its path."""
     srcs = _sources()
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
+    for s in srcs + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
         with open(s, "rb") as f:
             h.update(f.read())
     out_dir = kernel_build_dir()

@@ -26,43 +26,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bitsink.cuh"
+
 namespace {
-
-struct BitSink {
-  uint32_t* out;
-  int cap_words;
-  uint64_t acc = 0;
-  int nbits = 0;   // bits waiting in acc (< 32 between calls)
-  int nwords = 0;  // words written
-  int total = 0;   // bits put
-
-  __device__ void put(uint32_t value, int len) {
-    if (len == 0) return;
-    acc = (acc << len) | (value & ((1u << len) - 1u));
-    nbits += len;
-    total += len;
-    while (nbits >= 32) {
-      nbits -= 32;
-      if (nwords < cap_words) out[nwords] = (uint32_t)(acc >> nbits);
-      ++nwords;
-    }
-    acc &= (1ull << nbits) - 1ull;
-  }
-
-  __device__ void flush() {
-    if (nbits > 0 && nwords < cap_words)
-      out[nwords] = (uint32_t)(acc << (32 - nbits));
-  }
-};
-
-__device__ __forceinline__ int category(int v) {
-  const int a = v < 0 ? -v : v;
-  return a ? 32 - __clz(a) : 0;
-}
-
-__device__ __forceinline__ uint32_t value_bits(int v, int cat) {
-  return (uint32_t)(v < 0 ? v + (1 << cat) - 1 : v);
-}
 
 __global__ void huffman_blocks_kernel(const int32_t* __restrict__ coeff,
                                       int n_blocks,

@@ -115,10 +115,9 @@ def fdct_quant_plain(rgb: torch.Tensor, dct: torch.Tensor, bias: torch.Tensor,
     _, H, W = planes.shape
     blocks = (planes.reshape(3, H // 8, 8, W // 8, 8)
               .permute(0, 1, 3, 2, 4)
-              .reshape(3, -1, 64)
-              .to(torch.float32))
-    y = torch.matmul(blocks, dct) - bias
-    coeff = torch.round(y / qdiv[:, None, :]).to(torch.int32)
+              .reshape(3, -1, 64))
+    coeff = quantize_plain(fdct_blocks_plain(blocks, dct, bias),
+                           qdiv[:, None, :])
     if interleaved:
         coeff = coeff.permute(1, 0, 2)
     return coeff.reshape(-1, 64).contiguous()
@@ -178,6 +177,16 @@ def fdct_quant_planes_plain(planes: torch.Tensor, dct: torch.Tensor,
     """Plain torch version of :func:`fdct_quant_planes`: blockify each
     plane, gather the blocks in scan order, a float32 matmul (on a CUDA
     tensor the caller keeps TF32 off)."""
+    blocks, comp = scan_order_blocks(planes, blk, block_plane_idx)
+    return quantize_plain(fdct_blocks_plain(blocks, dct, bias), qdiv[comp])
+
+
+def scan_order_blocks(planes: torch.Tensor, blk: torch.Tensor,
+                      block_plane_idx: torch.Tensor
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """E0's planes -> (blocks (NB, 64) uint8 in scan order, pixels
+    row-major, each block's plane index (NB,) int64), by the operands of
+    :func:`fdct_quant_planes`."""
     rows = blk.tolist()
     ends = [r[0] for r in rows[1:]] + [planes.numel()]
     blocks = torch.cat([
@@ -186,8 +195,19 @@ def fdct_quant_planes_plain(planes: torch.Tensor, dct: torch.Tensor,
     first = torch.tensor([r[2] for r in rows], device=planes.device)
     idx = block_plane_idx.to(torch.int64)
     comp = torch.searchsorted(first, idx, right=True) - 1
-    y = torch.matmul(blocks[idx].to(torch.float32), dct) - bias
-    return torch.round(y / qdiv[comp]).to(torch.int32)
+    return blocks[idx].contiguous(), comp
+
+
+def fdct_blocks_plain(blocks: torch.Tensor, dct: torch.Tensor,
+                      bias: torch.Tensor) -> torch.Tensor:
+    """(..., 64) pixels -> float32 ``x @ dct - bias`` (zig-zag DCT of the
+    level-shifted block; on a CUDA tensor the caller keeps TF32 off)."""
+    return torch.matmul(blocks.to(torch.float32), dct) - bias
+
+
+def quantize_plain(y: torch.Tensor, qdiv: torch.Tensor) -> torch.Tensor:
+    """float32 DCT values -> int32 ``rint(y / qdiv)`` (half to even)."""
+    return torch.round(y / qdiv).to(torch.int32)
 
 
 def _check_idct(coeff, wq, q_of, xf, H, W):

@@ -43,6 +43,15 @@ pick among those TPU kernels; E2 and E3 need none of them.
 ``tests/test_torch_entropy_general.py`` holds the plain E2 + E3 bit for
 bit against each of K6-K11 in interpret mode, on the JAX package's own
 coefficients.
+
+* **E12** :func:`dct_huffman_blocks` (``csrc/dct_huffman_blocks.cu``):
+  E1p's DCT and quantisation fused with E2's walk, so the coefficients
+  never reach device memory: the counterpart of K12
+  ``block_chunks_dct_pallas`` (``entropy_v2.py:637``), which only the
+  JAX package's stage-1 probe scripts call, and with its ``stop`` modes
+  of their ablation kernel (``scripts/ablate_stage1.py``). Its operands
+  are K12's contract unpacked from pair rows (:func:`from_pair_rows`);
+  the port's measurement tools (``gpujpeg_tpu_torch/tools/``) drive it.
 """
 from __future__ import annotations
 
@@ -197,6 +206,12 @@ def _value_bits(v: torch.Tensor, cat: torch.Tensor) -> torch.Tensor:
     return torch.where(v >= 0, v, v + (1 << cat) - 1) & ((1 << cat) - 1)
 
 
+def _low_bits(v: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """The low ``n`` bits of ``v`` (what a field of length ``n`` keeps;
+    Annex K codes already fit their lengths)."""
+    return v & ((1 << n) - 1)
+
+
 def _scatter_bits(words: torch.Tensor, row: torch.Tensor, vals: torch.Tensor,
                   lens: torch.Tensor, offs: torch.Tensor) -> None:
     """OR MSB-first fields of at most 32 bits into big-endian 32-bit words
@@ -217,6 +232,33 @@ def _scatter_bits(words: torch.Tensor, row: torch.Tensor, vals: torch.Tensor,
     flat.index_add_(0, w[spill] + 1, hi[spill])
 
 
+def _or_window(words: torch.Tensor, row: torch.Tensor, vals: torch.Tensor,
+               lens: torch.Tensor, offs: torch.Tensor) -> None:
+    """OR fields into int64 ``words`` (rows, n_words) in place by K12's
+    window formula (``ablate_stage1.py`` ``kernel_body``): a field at
+    offset o goes into word ``o >> 5`` shifted left by ``s0 = 32 - o % 32
+    - len``, or, when ``s0 < 0``, right by ``min(-s0, 31)`` with the spill
+    shifted left by ``max(32 + s0, 0)`` into the next word; nothing is cut
+    to the field's length and words past a row are dropped. For fields
+    that fit their lengths this is :func:`_scatter_bits`."""
+    keep = lens > 0
+    row, vals, lens, offs = row[keep], vals[keep], lens[keep], offs[keep]
+    n_words = words.shape[1]
+    j = offs >> 5
+    s0 = 32 - (offs & 31) - lens
+    lo = torch.where(s0 >= 0, (vals << s0.clamp(min=0)) & 0xFFFFFFFF,
+                     vals >> (-s0).clamp(0, 31))
+    hi = torch.where(s0 < 0, (vals << (32 + s0).clamp(min=0)) & 0xFFFFFFFF,
+                     0)
+    flat = words.view(-1)
+    for w, part in ((j, lo), (j + 1, hi)):
+        on = (w < n_words) & (part != 0)
+        idx, part = row[on] * n_words + w[on], part[on]
+        for b in range(32):     # OR as "any field sets bit b"
+            hit = torch.zeros_like(flat).index_add_(0, idx, (part >> b) & 1)
+            flat |= (hit > 0).to(torch.int64) << b
+
+
 def _to_int32_words(words: torch.Tensor) -> torch.Tensor:
     """int64 words holding 32-bit patterns -> int32 of the same bits."""
     return torch.where(words >= (1 << 31), words - (1 << 32),
@@ -226,20 +268,45 @@ def _to_int32_words(words: torch.Tensor) -> torch.Tensor:
 def huffman_blocks_plain(coeff: torch.Tensor, dc_pred: torch.Tensor,
                          block_cls: torch.Tensor, ac512: torch.Tensor,
                          dc64: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain torch version of :func:`huffman_blocks`: the golden coder's
-    symbols as arrays (``golden.encode_block``), offsets by cumsum and one
-    scatter of bit fields, :data:`PLAIN_CHUNK_BLOCKS` blocks at a time.
-    Words past a block's string are zero."""
+    """Plain torch version of :func:`huffman_blocks`: DC differences
+    through ``dc_pred``, then :func:`_walk_plain`. Words past a block's
+    string are zero."""
+    dc = coeff[:, 0].to(torch.int64)
+    pred = dc_pred.to(torch.int64)
+    diff = dc - torch.where(pred < 0, 0, dc[pred.clamp(min=0)])
+    return _walk_plain(coeff, diff, block_cls, torch.ones_like(block_cls),
+                       ac512, dc64, BLOCK_CAP_WORDS)
+
+
+def _walk_plain(coeff: torch.Tensor, diff: torch.Tensor,
+                block_cls: torch.Tensor, valid: torch.Tensor,
+                ac512: torch.Tensor, dc64: torch.Tensor,
+                cap_words: int, window: bool = False
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Every block's bit string as the golden coder writes it
+    (``golden.encode_block``), with the DC difference ``diff`` given:
+    symbols as arrays, offsets by cumsum and one scatter of bit fields,
+    :data:`PLAIN_CHUNK_BLOCKS` blocks at a time. The DC code is looked up
+    at ``min(cat, 15)``, as K12 does (no DC difference of 8-bit samples
+    comes near). Returns (words (NB, cap_words) int32, the first
+    ``cap_words`` words of each string with zeros past it, bits (NB,)
+    int32 full lengths); a block with ``valid == 0`` has none.
+
+    ``window`` is E12's ``lookups`` mode: the DC and AC symbols' entries
+    are ``sym * 3 + cls`` (``sym = cat`` for the DC), fields are not cut
+    to their lengths, and :func:`_or_window` places them."""
     dev = coeff.device
     NB = coeff.shape[0]
     c64 = coeff.to(torch.int64)
-    dc = c64[:, 0]
-    pred = dc_pred.to(torch.int64)
-    diff = dc - torch.where(pred < 0, 0, dc[pred.clamp(min=0)])
+    diff = diff.to(torch.int64)
     cls = block_cls.to(torch.int64)
+    on = valid.to(torch.int64) != 0
     ac_t = ac512.to(torch.int64)
     dc_t = dc64.to(torch.int64)
-    words = torch.zeros((NB, BLOCK_CAP_WORDS), dtype=torch.int64, device=dev)
+    keep = cap_words if window else min(cap_words, BLOCK_CAP_WORDS)
+    place = _or_window if window else _scatter_bits
+    cut = (lambda v, n: v) if window else _low_bits
+    words = torch.zeros((NB, cap_words), dtype=torch.int64, device=dev)
     bits = torch.zeros((NB,), dtype=torch.int64, device=dev)
     k = torch.arange(1, 64, device=dev)
     for lo in range(0, NB, PLAIN_CHUNK_BLOCKS):
@@ -247,26 +314,29 @@ def huffman_blocks_plain(coeff: torch.Tensor, dc_pred: torch.Tensor,
         n = hi - lo
         cl = cls[lo:hi]
         d = diff[lo:hi]
+        live = on[lo:hi]
         cat = _bit_length(d.abs())
-        e = dc_t[cl * 32 + cat]
-        dc_val = ((e >> 5) << cat) | _value_bits(d, cat)
-        dc_len = (e & 31) + cat
+        e = cat * 3 + cl if window else dc_t[cl * 32 + cat.clamp(max=15)]
+        dc_len = torch.where(live, (e & 31) + cat, 0)
+        dc_val = cut(((e >> 5) << cat) | _value_bits(d, cat), dc_len)
 
         ac = c64[lo:hi, 1:]
-        nz = ac != 0
+        nz = (ac != 0) & live[:, None]
         prev_incl = torch.cummax(torch.where(nz, k, 0), dim=1).values
         prev = torch.cat([torch.zeros((n, 1), dtype=torch.int64, device=dev),
                           prev_incl[:, :-1]], dim=1)
         run = k - prev - 1
         r16 = torch.where(nz, run >> 4, 0)
         cat_ac = torch.where(nz, _bit_length(ac.abs()), 0)
-        e = ac_t[cl[:, None] * 256 + (((run & 15) << 4) | cat_ac)]
-        sym_val = ((e >> 5) << cat_ac) | _value_bits(ac, cat_ac)
+        sym = ((run & 15) << 4) | cat_ac
+        e = sym * 3 + cl[:, None] if window else ac_t[cl[:, None] * 256 + sym]
         sym_len = torch.where(nz, (e & 31) + cat_ac, 0)
+        sym_val = cut(((e >> 5) << cat_ac) | _value_bits(ac, cat_ac), sym_len)
         zrl = ac_t[cl * 256 + 0xF0]
         zrl_len = (zrl & 31)[:, None]
+        zrl_code = _low_bits(zrl >> 5, zrl & 31)
         eob = ac_t[cl * 256]
-        eob_len = torch.where(ac[:, -1] == 0, eob & 31, 0)
+        eob_len = torch.where((ac[:, -1] == 0) & live, eob & 31, 0)
 
         # bit offsets: DC, then per AC position its ZRLs and its symbol,
         # then the EOB
@@ -276,18 +346,188 @@ def huffman_blocks_plain(coeff: torch.Tensor, dc_pred: torch.Tensor,
         off = csum - len_pos
         bits[lo:hi] = csum[:, -1]
 
-        part = words[lo:hi]
+        part = torch.zeros((n, keep if window else BLOCK_CAP_WORDS),
+                           dtype=torch.int64, device=dev)
         local = torch.arange(n, device=dev)
-        _scatter_bits(part, local, dc_val, dc_len, off[:, 0])
-        _scatter_bits(part, local[:, None].expand(n, 63), sym_val, sym_len,
-                      off[:, 1:64] + r16 * zrl_len)
-        _scatter_bits(part, local, eob >> 5, eob_len, off[:, 64])
+        place(part, local, dc_val, dc_len, off[:, 0])
+        place(part, local[:, None].expand(n, 63), sym_val, sym_len,
+              off[:, 1:64] + r16 * zrl_len)
+        place(part, local, _low_bits(eob >> 5, eob_len), eob_len,
+              off[:, 64])
         for j in range(3):     # at most three ZRLs precede one symbol
-            _scatter_bits(part, local[:, None].expand(n, 63),
-                          (zrl >> 5)[:, None].expand(n, 63),
-                          torch.where(r16 > j, zrl_len, 0),
-                          off[:, 1:64] + j * zrl_len)
+            place(part, local[:, None].expand(n, 63),
+                  zrl_code[:, None].expand(n, 63),
+                  torch.where(r16 > j, zrl_len, 0),
+                  off[:, 1:64] + j * zrl_len)
+        words[lo:hi, :keep] = part[:, :keep]
     return _to_int32_words(words), bits.to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# E12: DCT + quantisation + per-block bit strings, fused
+# ---------------------------------------------------------------------------
+
+#: E12's stop modes, in the order of the ``stop`` template argument of
+#: ``csrc/dct_huffman_blocks.cu``; the modes of ``scripts/
+#: ablate_stage1.py`` that a thread walking one block has. ``io`` loads
+#: and stores only, ``passthru`` writes pixels, ``dctonly`` the DCT with
+#: no divisor, ``dct`` the quotients, ``dctmul`` multiplies by the divisor
+#: in place of the division, ``synth`` stops after the categories and
+#: value bits, ``lookups`` walks with symbol codes from arithmetic in
+#: place of the tables, ``full`` is E12. Each writes what the script's
+#: mode writes (the source's header says what that is).
+STOP_MODES = ("io", "passthru", "dctonly", "dct", "dctmul", "synth",
+              "lookups", "full")
+#: values the script's pair-row modes write per pair row (words of both
+#: blocks at W = 4)
+PAIR_VALUES = 8
+#: E12's blocks per CTA (one walking thread each) and its CTA cap
+#: (``csrc/dct_huffman_blocks.cu``)
+E12_BLOCKS_PER_CTA, E12_MAX_CTAS = 64, 132 * 8
+
+
+def dct_huffman_grid(n_blocks: int) -> tuple[int, int]:
+    """(CTAs, threads) of one :func:`dct_huffman_blocks` launch."""
+    return (min(-(-n_blocks // E12_BLOCKS_PER_CTA), E12_MAX_CTAS),
+            E12_BLOCKS_PER_CTA)
+
+
+def dct_huffman_blocks(blocks: torch.Tensor, diff: torch.Tensor,
+                       block_cls: torch.Tensor, valid: torch.Tensor,
+                       qsel: torch.Tensor, qdiv: torch.Tensor,
+                       dct: torch.Tensor, bias: torch.Tensor,
+                       ac512: torch.Tensor, dc64: torch.Tensor,
+                       cap_words: int, stop: str = "full"
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(NB, 64) uint8 blocks in row-major pixel order -> (words (NB,
+    cap_words) int32, bits (NB,) int32).
+
+    Per block: ``q = rint((x @ dct - bias) / qdiv[qsel])`` in float32
+    (E1p's arithmetic), then the block's bit string as E2 writes it, with
+    the DC difference ``diff`` given instead of found through a
+    predecessor, an EOB when ``q[63] == 0``, and no string for a block
+    with ``valid == 0`` (``bits`` 0). ``words`` holds the first
+    ``cap_words`` words of the string MSB first (words past
+    ``ceil(min(bits, 32 * cap_words) / 32)`` are unspecified), ``bits``
+    the full length: ``cap_words = W`` is K12's contract, truncation
+    included, and ``cap_words = BLOCK_CAP_WORDS`` is E2's layout, which
+    E3 takes. ``qsel`` values lie below ``qdiv.shape[0]``. ``stop``
+    picks one of :data:`STOP_MODES`; their launches are counted apart in
+    ``dct_huffman_blocks.launches``."""
+    NB = blocks.shape[0]
+    n_q = qdiv.shape[0] if qdiv.dim() == 2 else 0
+    if stop not in STOP_MODES:
+        raise ValueError(f"stop must be one of {STOP_MODES}, got {stop!r}")
+    if cap_words < 1 or n_q < 1:
+        raise ValueError(f"cap_words {cap_words} and qdiv rows {n_q} must "
+                         "be positive")
+    _check({"blocks": (blocks, (NB, 64), torch.uint8),
+            "diff": (diff, (NB,), torch.int32),
+            "block_cls": (block_cls, (NB,), torch.int32),
+            "valid": (valid, (NB,), torch.int32),
+            "qsel": (qsel, (NB,), torch.int32),
+            "qdiv": (qdiv, (n_q, 64), torch.float32),
+            "dct": (dct, (64, 64), torch.float32),
+            "bias": (bias, (64,), torch.float32),
+            "ac512": (ac512, (512,), torch.int32),
+            "dc64": (dc64, (64,), torch.int32)}, blocks.device)
+    args = (blocks, diff, block_cls, valid, qsel, qdiv, dct, bias, ac512,
+            dc64, cap_words, stop)
+    if blocks.device.type == "cpu":
+        return dct_huffman_blocks_plain(*args)
+    if blocks.device.type != "cuda":
+        raise ValueError(f"unsupported device {blocks.device}")
+    words = torch.empty((NB, cap_words), dtype=torch.int32,
+                        device=blocks.device)
+    bits = torch.empty((NB,), dtype=torch.int32, device=blocks.device)
+    lib = _build.load_kernels()
+    err = lib.gj_dct_huffman_blocks(
+        blocks.data_ptr(), NB, diff.data_ptr(), block_cls.data_ptr(),
+        valid.data_ptr(), qsel.data_ptr(), qdiv.data_ptr(), dct.data_ptr(),
+        bias.data_ptr(), ac512.data_ptr(), dc64.data_ptr(), cap_words,
+        STOP_MODES.index(stop), words.data_ptr(), bits.data_ptr(),
+        torch.cuda.current_stream(blocks.device).cuda_stream)
+    _build.check_launch("gj_dct_huffman_blocks", err)
+    dct_huffman_blocks.launches[stop] += 1
+    return words, bits
+
+
+dct_huffman_blocks.launches = dict.fromkeys(STOP_MODES, 0)
+
+
+def dct_huffman_blocks_plain(blocks: torch.Tensor, diff: torch.Tensor,
+                             block_cls: torch.Tensor, valid: torch.Tensor,
+                             qsel: torch.Tensor, qdiv: torch.Tensor,
+                             dct: torch.Tensor, bias: torch.Tensor,
+                             ac512: torch.Tensor, dc64: torch.Tensor,
+                             cap_words: int, stop: str = "full"
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain torch version of :func:`dct_huffman_blocks`: a matmul,
+    ``torch.round``, then :func:`_walk_plain` (``lookups``: its window
+    form), or the stop mode's values. Words past a string are zero."""
+    from .dct import fdct_blocks_plain, quantize_plain
+    dev = blocks.device
+    if stop == "io":
+        g = torch.arange(blocks.shape[0], device=dev)
+        g = g - g % E12_BLOCKS_PER_CTA
+        px = blocks[g, 0].to(torch.int32)[:, None]
+        return px.expand(-1, cap_words).contiguous(), diff[g]
+    if stop == "passthru":
+        return _pair_rows(blocks.to(torch.int64), None, cap_words)
+    y = fdct_blocks_plain(blocks, dct, bias)
+    qd = qdiv[qsel.to(torch.int64)]
+    if stop == "dctonly":
+        return _pair_rows(y.to(torch.int64), None, cap_words)
+    if stop == "dctmul":
+        return _pair_rows(torch.round(y * qd).to(torch.int64), None,
+                          cap_words)
+    q = quantize_plain(y, qd)
+    if stop == "dct":
+        return _pair_rows(q.to(torch.int64), None, cap_words)
+    if stop == "synth":
+        v = torch.cat([diff[:, None], q[:, 1:]], dim=1).to(torch.int64)
+        cat = _bit_length(v.abs())
+        return _pair_rows(_value_bits(v, cat) + cat, cat, cap_words)
+    return _walk_plain(q, diff, block_cls, valid, ac512, dc64, cap_words,
+                       window=stop == "lookups")
+
+
+def _pair_rows(vals: torch.Tensor, bit_vals: torch.Tensor | None,
+               cap_words: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The pair-row modes' output from (NB, 64) int64 values per block:
+    with e = b & ~1 and h = b & 1, word w of block b is ``vals[e, h *
+    cap_words + w]`` (0 from index :data:`PAIR_VALUES` on) and its bits
+    ``bit_vals[e, h]`` (``bit_vals`` defaults to ``vals``)."""
+    dev = vals.device
+    b = torch.arange(vals.shape[0], device=dev)
+    e, h = b - (b & 1), b & 1
+    j = h[:, None] * cap_words + torch.arange(cap_words, device=dev)
+    words = torch.where(j < PAIR_VALUES,
+                        vals[e[:, None], j.clamp(max=PAIR_VALUES - 1)], 0)
+    bit_vals = vals if bit_vals is None else bit_vals
+    return (_to_int32_words(words & 0xFFFFFFFF),
+            bit_vals[e, h].to(torch.int32))
+
+
+def from_pair_rows(pb2: np.ndarray, diff2: np.ndarray, cls2: np.ndarray,
+                   valid2: np.ndarray, qidx: np.ndarray,
+                   q2tab: np.ndarray) -> dict:
+    """K12's operands (``entropy_v2.block_chunks_dct_pallas``: two blocks
+    per row, block 2i in the left half and 2i+1 in the right, a row's
+    divisors as one ``q2tab`` row) -> E12's, as NumPy arrays: ``blocks``,
+    ``diff``, ``block_cls``, ``valid``, ``qsel`` and ``qdiv``. Block 2i
+    takes the left half of row ``qidx[i]`` (``qdiv`` row ``2 qidx[i]``),
+    block 2i+1 the right half (``2 qidx[i] + 1``)."""
+    def flat(a, dtype, width=None):
+        a = np.ascontiguousarray(a, dtype)
+        return a.reshape(-1) if width is None else a.reshape(-1, width)
+
+    qi = 2 * flat(qidx, np.int32, 1)
+    return {"blocks": flat(pb2, np.uint8, 64),
+            "diff": flat(diff2, np.int32), "block_cls": flat(cls2, np.int32),
+            "valid": flat(valid2, np.int32),
+            "qsel": flat(np.concatenate([qi, qi + 1], axis=1), np.int32),
+            "qdiv": flat(q2tab, np.float32, 64)}
 
 
 # ---------------------------------------------------------------------------

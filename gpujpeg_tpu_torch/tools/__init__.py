@@ -1,0 +1,85 @@
+"""Measurement tools of the port: the counterparts of the JAX package's
+stage-1 probe scripts, each runnable as a module.
+
+* :mod:`.perf_stage1` (``scripts/perf_stage1.py``): the card's copy rate
+  (``copy_bytes`` against ``Tensor.clone()``), E12 on the script's
+  inputs, and E2 + E3 on its random coefficients;
+* :mod:`.ablate_stage1` (``scripts/ablate_stage1.py``): E12 cut after
+  each stage;
+* :mod:`.perf_rgbpack` (``scripts/perf_rgbpack.py``): E0 on RGB 4:4:4
+  against the copy floor of the same bytes.
+
+Each defaults to ``--device cuda`` at 8K (7680x4320) and takes
+``--device cpu --height H --width W`` for a small run on the plain
+versions; each draws its inputs with ``np.random.default_rng(0)`` in the
+order its JAX script does. The TPU tile sweeps of the scripts have no
+counterpart; the tools print each kernel's launch configuration instead.
+A kernel's exception is not caught.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+#: the JAX scripts' frame
+HEIGHT, WIDTH = 4320, 7680
+
+
+def parse_args(description: str, stages: tuple,
+               argv: list | None) -> argparse.Namespace:
+    """The tools' shared command line: stages (all when none is named),
+    device, frame size, repeats."""
+    p = argparse.ArgumentParser(description=description)
+    p.add_argument("stages", nargs="*",
+                   help=f"stages to run (default: all of {', '.join(stages)})")
+    p.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    p.add_argument("--height", type=int, default=HEIGHT)
+    p.add_argument("--width", type=int, default=WIDTH)
+    p.add_argument("--reps", type=int, default=20,
+                   help="timed runs after one warm-up")
+    args = p.parse_args(argv)
+    bad = [s for s in args.stages if s not in stages]
+    if bad:
+        p.error(f"unknown stages {bad}; choose from {list(stages)}")
+    args.stages = [s for s in stages if s in args.stages] or list(stages)
+    return args
+
+
+def device(name: str) -> torch.device:
+    """The tools' device; ``cuda`` without a card raises (no fallback)."""
+    if name == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda needs a CUDA card; use --device "
+                           "cpu for the plain versions")
+    return torch.device(name)
+
+
+def mean_ms(fn, dev: torch.device, reps: int) -> tuple[float, str]:
+    """(mean ms of ``fn()`` over ``reps`` runs after one warm-up, the
+    clock): CUDA events on a card, the host clock on the CPU."""
+    fn()
+    if dev.type != "cuda":
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t0) * 1e3 / reps, "host clock"
+    torch.cuda.synchronize(dev)
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize(dev)
+    return start.elapsed_time(stop) / reps, "CUDA events"
+
+
+def report(tool: str, rows: list[dict]) -> None:
+    """One line per row: its stage, kernel, time and the rest."""
+    for r in rows:
+        rest = ", ".join(f"{k} {v:.4f}" if isinstance(v, float)
+                         else f"{k} {v}" for k, v in r.items()
+                         if k not in ("stage", "kernel", "ms", "clock"))
+        print(f"{tool} {r['stage']}: {r['kernel']} {r['ms']:.4f} ms "
+              f"({r['clock']}); {rest}", flush=True)

@@ -26,6 +26,9 @@ def _params(mod, w, h, q, ri, interleaved=False):
 
 def test_port_imports_without_jax():
     code = ("import sys, gpujpeg_tpu_torch; "
+            "import gpujpeg_tpu_torch.tools.perf_stage1, "
+            "gpujpeg_tpu_torch.tools.ablate_stage1, "
+            "gpujpeg_tpu_torch.tools.perf_rgbpack; "
             "bad = [m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'gpujpeg_tpu')]; "
             "assert not bad, bad; print('clean')")
