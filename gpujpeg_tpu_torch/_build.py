@@ -36,7 +36,7 @@ _L = ctypes.c_longlong
 
 #: C entry -> argument types (pointers and the stream as c_void_p)
 SIGNATURES = {
-    "gj_fdct_quant": [_P, _I, _I, _P, _P, _P, _P, _I, _P, _P],
+    "gj_fdct_quant": [_P, _I, _I, _P, _P, _P, _I, _P, _P],
     "gj_huffman_blocks": [_P, _I, _P, _P, _P, _P, _I, _P, _P, _P],
     "gj_merge_stuff": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P,
                        _P],

@@ -1,5 +1,5 @@
-// The per-thread bit writer of the Huffman kernels (E2 huffman_blocks.cu,
-// E12 dct_huffman_blocks.cu) and the two JPEG value helpers they share.
+// The per-thread bit writer of E12 (dct_huffman_blocks.cu) and the two
+// JPEG value helpers it shares with E2 (huffman_blocks.cu).
 //
 // BitSink gathers bits MSB first in a 64-bit accumulator and writes them
 // out as big-endian-in-value 32-bit words, at most `cap_words` of them;
@@ -39,14 +39,13 @@ struct BitSink {
   }
 };
 
-// JPEG category (bit length of |v|), 0 for v == 0.
+// JPEG category (bit length of |v|), 0 for v == 0 (__clz(0) is 32).
 __device__ __forceinline__ int category(int v) {
-  const int a = v < 0 ? -v : v;
-  return a ? 32 - __clz(a) : 0;
+  return 32 - __clz(v < 0 ? -v : v);
 }
 
-// The `cat` value bits of v (one's complement for negatives); callers
-// keep the low `cat` bits.
-__device__ __forceinline__ uint32_t value_bits(int v, int cat) {
-  return (uint32_t)(v < 0 ? v + (1 << cat) - 1 : v);
+// The value bits of v (one's complement for negatives: v - 1 agrees with
+// v + 2^cat - 1 in the low `cat` bits); callers keep the low `cat` bits.
+__device__ __forceinline__ uint32_t value_bits(int v) {
+  return (uint32_t)(v - (v < 0));
 }

@@ -138,7 +138,7 @@ template <class Sink>
 __device__ __forceinline__ void put_symbol(Sink& sink, int e, int v,
                                            int cat) {
   sink.put((((uint32_t)e >> 5) << cat) |
-               (value_bits(v, cat) & ((1u << cat) - 1u)),
+               (value_bits(v) & ((1u << cat) - 1u)),
            (e & 31) + cat);
 }
 
@@ -263,7 +263,7 @@ dct_huffman_blocks_kernel(const uint8_t* __restrict__ blocks, int NB,
         const int v = j ? qs[e][j] : sd[e];
         const int c = category(v);
         if (of_bits) return (uint32_t)c;
-        return (value_bits(v, c) & ((1u << c) - 1u)) + (uint32_t)c;
+        return (value_bits(v) & ((1u << c) - 1u)) + (uint32_t)c;
       };
       for (int w = 0; w < cap_words; ++w) {
         const int j = h * cap_words + w;

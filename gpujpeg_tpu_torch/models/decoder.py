@@ -102,13 +102,19 @@ class Decoder:
 
     ``device`` is where the torch backend runs. ``"cuda"`` needs a CUDA
     device and raises without one; ``"cpu"`` runs the kernels' plain
-    torch versions. The golden backend ignores it."""
+    torch versions. The golden backend ignores it.
 
-    def __init__(self, backend: str = "torch", device="cuda"):
+    ``perf_stats`` fills the device route's per-kernel stage durations
+    (reference: ``Decoder(perf_stats=...)``; CUDA events on the card, read
+    after the decode's one sync)."""
+
+    def __init__(self, backend: str = "torch", device="cuda",
+                 perf_stats: bool = False):
         if backend not in BACKENDS:
             raise ValueError(f"backend must be one of {BACKENDS}, "
                              f"got {backend!r}")
         self.backend = backend
+        self.perf_stats = perf_stats
         self.device = torch.device(device)
         if backend == "torch":
             if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -150,9 +156,12 @@ class Decoder:
     def decode_to_device(self, data: bytes):
         """Decode leaving the raw image on the decoder's device: returns
         (flat uint8 tensor in the output's pixel format, ImageParameters)
-        on the torch backend — the analog of the reference's
-        custom-CUDA-buffer outputs (gpujpeg_decoder.c:286-317). The golden
-        backend returns a host array."""
+        when the stream takes the device route — the analog of the
+        reference's custom-CUDA-buffer outputs
+        (gpujpeg_decoder.c:286-317). Streams that take the host route
+        (the golden backend, fewer than :data:`CPU_SEGMENT_THRESHOLD`
+        segments, no restart markers) return the host NumPy array, as
+        the reference does."""
         self.output_to_device = True
         try:
             return self.decode(data)
@@ -189,12 +198,9 @@ class Decoder:
 
         if self.backend == "golden" or \
                 plan.n_segments < CPU_SEGMENT_THRESHOLD:
-            raw = self._decode_golden(info, plan, scan_data,
-                                      segments_by_scan, dc_by_comp,
-                                      ac_by_comp, out_image)
-            if self.output_to_device and self.backend == "torch":
-                raw = torch.from_numpy(raw).to(self.device)
-            return raw, out_image
+            return self._decode_golden(info, plan, scan_data,
+                                       segments_by_scan, dc_by_comp,
+                                       ac_by_comp, out_image), out_image
 
         from ..ops.pipeline import decode_device
         raw = decode_device(self, plan, info, scan_data, segments_by_scan,

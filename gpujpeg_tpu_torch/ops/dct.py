@@ -10,19 +10,27 @@ wrapper takes it only for tensors on the CPU.
 Both compute ``rint((x @ D - bias) / q)`` in float32 with
 ``D, bias = tables.dct_zigzag_operator()`` and ``q = max(quant, 1)``, the
 arithmetic of the reference's ``_stage1_dct_tile``. Division is IEEE
-round-to-nearest and rounding is half-to-even. The two sum the 64 terms
-in different orders, so a quotient within rounding distance of .5 can
-differ by one between them (and between either and the JAX package).
+round-to-nearest and rounding is half-to-even. The plain version
+multiplies by the dense ``D``; the kernel evaluates the same product in
+separable form, a row pass and a column pass with ``D``'s 8x8 factor
+(``tables.dct8_matrix`` in float32, compiled into the kernel) on the raw
+pixels, then the zig-zag gather and the bias; it reads no ``dct``
+operand, so ``dct`` must be ``tables.dct_zigzag_operator()``'s, as every
+caller's is. Either differs from the float64 value by less than
+``2**-17 * (x @ |D| + |bias|)``, so a quotient can differ by one between
+them (and between either and the JAX package) only where its float64
+value lies within twice that bound, over the divisor, of .5.
 
 **E1p**: blockify + DCT + quantisation of the component planes that E0
 (``ops/preprocess.py``) writes, for every plan. :func:`fdct_quant_planes`
-wraps ``csrc/fdct_quant_planes.cu``: E1's design and arithmetic, with
-each scan-order block gathered from its plane through
+wraps ``csrc/fdct_quant_planes.cu``: the dense 64-term zig-zag DCT of
+the plain version (E1's first design), with each scan-order block
+gathered from its plane through
 ``plan.block_plane_idx`` (it replaces the DCT+quant of the JAX
 reference's ``block_chunks_dct_fused``, K6, and the staged path's XLA
 blockify, gather and DCT matmul, ``jax_pipeline.py:209-243``).
 :func:`fdct_quant_planes_plain` is its plain torch version. On 4:4:4 RGB
-input, E1p on E0's planes equals E1 bit for bit.
+input, E1p on E0's planes equals E1 outside such ties.
 
 **D2**: dequantisation + IDCT + inverse colour transform + unblockify.
 :func:`idct_rgb` wraps ``csrc/idct_rgb.cu`` (it replaces the fused
@@ -93,7 +101,7 @@ def fdct_quant(rgb: torch.Tensor, dct: torch.Tensor, bias: torch.Tensor,
                       device=rgb.device)
     lib = _build.load_kernels()
     err = lib.gj_fdct_quant(
-        rgb.data_ptr(), H, W, dct.data_ptr(), bias.data_ptr(),
+        rgb.data_ptr(), H, W, bias.data_ptr(),
         qdiv.data_ptr(), xf.data_ptr(), int(bool(interleaved)),
         out.data_ptr(), torch.cuda.current_stream(rgb.device).cuda_stream)
     _build.check_launch("gj_fdct_quant", err)

@@ -8,9 +8,11 @@ append in VMEM tiles. The tree merge, lane packing and window matmuls
 answered Mosaic's limits; on the card two plain kernels do the same
 work:
 
-* **E2** :func:`huffman_blocks` (``csrc/huffman_blocks.cu``): one thread
-  per block writes the block's bit string into a scratch row of one
-  worst-case capacity (:data:`BLOCK_CAP_WORDS`) and its bit length.
+* **E2** :func:`huffman_blocks` (``csrc/huffman_blocks.cu``): one warp
+  per block, a lane per two coefficients (run lengths from ballot masks,
+  bit offsets from a warp scan), writes the block's bit string into a
+  scratch row of one worst-case capacity (:data:`BLOCK_CAP_WORDS`) and
+  its bit length.
 * **E3** :func:`merge_stuff` (``csrc/merge_stuff.cu``): one thread per
   segment concatenates its blocks' strings, pads with 1-bits, stuffs
   0xFF bytes and appends the RST marker.
@@ -62,7 +64,8 @@ import torch
 
 from .. import _build
 from ..plan import CoderPlan
-from ..tables import HuffmanTable
+from ..tables import (DEFAULT_HUFFMAN_BITS, DEFAULT_HUFFMAN_VALUES,
+                      HuffmanTable)
 from ..types import ComponentType, HuffmanType
 from .huffman_encode import build_enc_geometry
 
@@ -175,6 +178,9 @@ def huffman_blocks(coeff: torch.Tensor, dc_pred: torch.Tensor,
         return huffman_blocks_plain(coeff, dc_pred, block_cls, ac512, dc64)
     if coeff.device.type != "cuda":
         raise ValueError(f"unsupported device {coeff.device}")
+    if coeff.data_ptr() % 8:
+        raise ValueError("coeff must be 8-byte aligned (the kernel loads "
+                         "coefficient pairs)")
     words = torch.empty((NB, BLOCK_CAP_WORDS), dtype=torch.int32,
                         device=coeff.device)
     bits = torch.empty((NB,), dtype=torch.int32, device=coeff.device)
@@ -361,6 +367,63 @@ def _walk_plain(coeff: torch.Tensor, diff: torch.Tensor,
                   off[:, 1:64] + j * zrl_len)
         words[lo:hi, :keep] = part[:, :keep]
     return _to_int32_words(words), bits.to(torch.int32)
+
+
+#: zero runs before a nonzero coefficient in :func:`envelope_blocks`: one
+#: under, at and over each ZRL threshold, three ZRLs, the longest run
+ENVELOPE_RUNS = (15, 16, 17, 31, 32, 48, 62)
+
+
+def envelope_huffman_spec(zrl16: bool) -> dict:
+    """(bits, values) per (component type, Huffman type) for E2's
+    envelope: Annex K, or with the AC symbol 0xF0 (ZRL) moved to the end
+    of the values, which gives it one of the 16-bit codes."""
+    out = {}
+    for key, bits in DEFAULT_HUFFMAN_BITS.items():
+        values = list(DEFAULT_HUFFMAN_VALUES[key])
+        if zrl16 and key[1] == HuffmanType.AC:
+            values.remove(0xF0)
+            values.append(0xF0)
+        out[key] = (bits, values)
+    return out
+
+
+def envelope_blocks(rng: np.random.Generator) -> np.ndarray:
+    """(N, 64) int32 zig-zag blocks that reach every chunk shape of E2's
+    walk: each run of :data:`ENVELOPE_RUNS` after the DC, after
+    coefficient 1 (before a 1023) and ending at 63 (no EOB, after a
+    2047); a lone 63; all-zero AC (DC and EOB only); every AC nonzero;
+    |v| up to 2047; sparse random blocks. The DC alternates between -1024
+    and 1023, differences of +-2047 along one DC chain."""
+    rows = []
+    for run in ENVELOPE_RUNS:
+        r = np.zeros(64, np.int32)
+        r[1 + run] = -3
+        rows.append(r)
+        r = np.zeros(64, np.int32)
+        r[1] = 5
+        if 2 + run < 64:
+            r[2 + run] = 1023
+        rows.append(r)
+        r = np.zeros(64, np.int32)
+        r[63 - run] = 2047
+        r[63] = -1
+        rows.append(r)
+    r = np.zeros(64, np.int32)
+    r[63] = -1023
+    rows.append(r)
+    rows.append(np.zeros(64, np.int32))
+    full = rng.integers(-1023, 1024, 64).astype(np.int32)
+    full[full == 0] = 1
+    rows.append(full)
+    rows.append(rng.integers(-2047, 2048, 64).astype(np.int32))
+    for density in (0.02, 0.1, 0.4):
+        rows.append(np.where(rng.random(64) < density,
+                             rng.integers(-1023, 1024, 64), 0)
+                    .astype(np.int32))
+    blocks = np.stack(rows)
+    blocks[:, 0] = np.where(np.arange(len(rows)) % 2, 1023, -1024)
+    return blocks
 
 
 # ---------------------------------------------------------------------------

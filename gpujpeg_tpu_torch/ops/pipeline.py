@@ -46,6 +46,19 @@ host, uploads them and takes one of two routes after D1 huffman_decode
 On a CUDA device each stage is a hand-written kernel; on the CPU each
 runs its plain torch version.
 
+**Stage statistics.** With ``Parameters.perf_stats`` (encode) or
+``Decoder.perf_stats`` (decode) a :class:`StageClock` marks the stage
+boundaries: on the card a CUDA event recorded on the stream between two
+launches, read after the one sync at the end; on the CPU the host
+clock. The encode fills ``duration_memory_to`` (upload),
+``duration_preprocessor`` (E0; 0 on the E1 route, whose colour
+transform is inside E1), ``duration_dct_quantization`` (E1 or E1p),
+``duration_huffman_coder`` (E2 + E3) and ``duration_memory_from``
+(compaction and copy back); the decode ``duration_huffman_coder`` (D1),
+``duration_dct_quantization`` (D2 or D2p) and ``duration_postprocessor``
+(D3; 0 on the D2 route). Without it no event is recorded and nothing
+more is synced.
+
 The reference's TPU machinery has no counterpart, and why:
 
 * its tier-1/tier-2 capacities with the overflow retry, and the W/bps
@@ -59,9 +72,11 @@ The reference's TPU machinery has no counterpart, and why:
   per block the port holds 256 B of coefficients, 224 B of E2 scratch,
   4 B of bit length and at most 448 B of E3 output, about 0.93 KB, so a
   16K 4:4:4 frame of 6.2M blocks needs about 5.8 GB of the H100's 80 GB;
-* vmap batching, perf_stats staging jits and XLA fallbacks, and on the
-  decode its seg_tile sizing, v2/v3 route (K4 or K5 by ``wcap``), wcap
-  buckets and slot templates: D1 takes any row width and block map.
+* vmap batching, the staged executables that its stage statistics
+  need (a launch here is already one stage) and XLA fallbacks, and on
+  the decode its seg_tile sizing, v2/v3 route (K4 or K5 by ``wcap``),
+  wcap buckets and slot templates: D1 takes any row width and block
+  map.
 """
 from __future__ import annotations
 
@@ -85,6 +100,38 @@ from .preprocess import (
 from .rgbpack import (
     pack_consts, pack_eligible, transform_consts_tensor, unpack_consts,
     unpack_eligible)
+
+
+class StageClock:
+    """Stage boundaries of one encode or decode with perf stats on: CUDA
+    events recorded on the current stream (on the card), host clock
+    readings (on the CPU)."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.marks: list = []
+
+    def mark(self) -> None:
+        if self.cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.marks.append(ev)
+        else:
+            self.marks.append(time.perf_counter())
+
+    def durations(self) -> list[float]:
+        """ms between consecutive marks (on the card after one sync on
+        the last event)."""
+        pairs = list(zip(self.marks, self.marks[1:]))
+        if self.cuda:
+            self.marks[-1].synchronize()
+            return [a.elapsed_time(b) for a, b in pairs]
+        return [(b - a) * 1e3 for a, b in pairs]
+
+
+def _mark(clock: StageClock | None) -> None:
+    if clock is not None:
+        clock.mark()
 
 
 def _scan_order_ok(plan: CoderPlan) -> bool:
@@ -144,26 +191,38 @@ class _EncContext:
             return upload_rgb(raw, self.plan, self.device)
         return upload_raw(raw, self.plan.image, self.device)
 
-    def run(self, x: torch.Tensor):
+    def run(self, x: torch.Tensor, clock: StageClock | None = None):
         """:meth:`upload`'s tensor -> (out, out_len, seg_bits, n_ff) of
-        :func:`entropy.merge_stuff`."""
-        return self.entropy(self.coefficients(x))
+        :func:`entropy.merge_stuff`; ``clock`` is marked after the
+        preprocessor, the DCT and the Huffman stage."""
+        coeff = self.coefficients(x, clock)
+        _mark(clock)
+        out = self.entropy(coeff)
+        _mark(clock)
+        return out
 
-    def coefficients(self, x: torch.Tensor) -> torch.Tensor:
+    def coefficients(self, x: torch.Tensor,
+                     clock: StageClock | None = None) -> torch.Tensor:
         """:meth:`upload`'s tensor -> (NB, 64) int32 scan-order
-        coefficients, by E1 or by E0 + E1p."""
+        coefficients, by E1 or by E0 + E1p (``clock`` marked between the
+        two, or before E1)."""
         if self.rgb_route:
+            _mark(clock)
             t = self.tables
             return fdct_quant(x, t.dct, t.bias, self.qdiv, self.xf,
                               self.interleaved)
-        return self.coefficients_planes(x)
+        return self.coefficients_planes(x, clock)
 
-    def coefficients_planes(self, raw: torch.Tensor) -> torch.Tensor:
+    def coefficients_planes(self, raw: torch.Tensor,
+                            clock: StageClock | None = None
+                            ) -> torch.Tensor:
         """Flat raw bytes (:func:`preprocess.upload_raw`) -> scan-order
         coefficients by E0 + E1p, for any plan."""
         t, g = self.tables, self.planes
-        return fdct_quant_planes(preprocess_planes(raw, g), t.dct, t.bias,
-                                 self.qdiv, g.blk, g.block_plane_idx)
+        planes = preprocess_planes(raw, g)
+        _mark(clock)
+        return fdct_quant_planes(planes, t.dct, t.bias, self.qdiv, g.blk,
+                                 g.block_plane_idx)
 
     def entropy(self, coeff: torch.Tensor):
         """Scan-order coefficients -> E2 -> E3."""
@@ -200,11 +259,22 @@ def encode_segments_device(encoder, raw, plan: CoderPlan, quant_zz: dict,
     the per-segment byte sizes (for APP13 segment-info back-patching)."""
     ctx = _enc_context(encoder._contexts, plan, quant_zz, huff,
                        encoder.device)
+    clock = StageClock(ctx.device) if plan.params.perf_stats else None
     t0 = time.perf_counter()
-    out, out_len, _seg_bits, _n_ff = ctx.run(ctx.upload(raw))
+    _mark(clock)
+    x = ctx.upload(raw)
+    _mark(clock)
+    out, out_len, _seg_bits, _n_ff = ctx.run(x, clock)
     out_len_h = out_len.cpu().numpy()
     encoder.stats.duration_in_gpu = (time.perf_counter() - t0) * 1e3
-    return _split_scan_bodies(plan, ctx, out, out_len_h)
+    result = _split_scan_bodies(plan, ctx, out, out_len_h)
+    if clock is not None:
+        clock.mark()
+        st = encoder.stats
+        (st.duration_memory_to, st.duration_preprocessor,
+         st.duration_dct_quantization, st.duration_huffman_coder,
+         st.duration_memory_from) = clock.durations()
+    return result
 
 
 def _split_scan_bodies(plan: CoderPlan, ctx: _EncContext, out: torch.Tensor,
@@ -267,22 +337,31 @@ class _DecContext:
                               self.block_comp, t.quick, t.maxcode, t.delta,
                               t.huffval, t.dc_slot, t.ac_slot)
 
-    def pixels(self, coeff: torch.Tensor) -> torch.Tensor:
+    def pixels(self, coeff: torch.Tensor,
+               clock: StageClock | None = None) -> torch.Tensor:
         """Scan-order coefficients -> the flat uint8 raw frame, by D2 or
-        by D2p + D3."""
+        by D2p + D3 (``clock`` marked between the two, or after D2)."""
         t = self.tables
         if self.rgb_route:
-            return idct_rgb(coeff, t.wq, t.q_of, self.xf, self.interleaved,
-                            *self.shape).view(-1)
+            raw = idct_rgb(coeff, t.wq, t.q_of, self.xf, self.interleaved,
+                           *self.shape).view(-1)
+            _mark(clock)
+            return raw
         b = self.blocks
-        return postprocess_planes(
-            idct_planes(coeff, t.wq, t.q_of, b.blk, b.block_plane_idx,
-                        b.total), self.out)
+        planes = idct_planes(coeff, t.wq, t.q_of, b.blk, b.block_plane_idx,
+                             b.total)
+        _mark(clock)
+        return postprocess_planes(planes, self.out)
 
-    def run(self, rows: torch.Tensor) -> torch.Tensor:
+    def run(self, rows: torch.Tensor,
+            clock: StageClock | None = None) -> torch.Tensor:
         """(S, wcap) int32 rows on the context's device -> the flat uint8
-        raw frame."""
-        return self.pixels(self.coefficients(rows))
+        raw frame; ``clock`` is marked after D1, the IDCT stage and D3."""
+        coeff = self.coefficients(rows)
+        _mark(clock)
+        raw = self.pixels(coeff, clock)
+        _mark(clock)
+        return raw
 
 
 def _dec_context(cache: dict, plan: CoderPlan, info, dc_by_comp, ac_by_comp,
@@ -314,14 +393,20 @@ def decode_device(decoder, plan: CoderPlan, info, scan_data,
     ctx = _dec_context(decoder._contexts, plan, info, dc_by_comp, ac_by_comp,
                        out_image, decoder.device)
     rows = build_rows(plan, scan_data, segments_by_scan)
+    clock = StageClock(ctx.device) if decoder.perf_stats else None
     t0 = time.perf_counter()
     rows_dev = torch.from_numpy(rows).to(ctx.device)
     t1 = time.perf_counter()
-    raw = ctx.run(rows_dev)
+    _mark(clock)
+    raw = ctx.run(rows_dev, clock)
     if ctx.device.type == "cuda":
         torch.cuda.synchronize(ctx.device)
     t2 = time.perf_counter()
-    decoder.stats.bytes_memory_to = int(rows.nbytes)
-    decoder.stats.duration_memory_to = (t1 - t0) * 1e3
-    decoder.stats.duration_in_gpu = (t2 - t1) * 1e3
+    st = decoder.stats
+    st.bytes_memory_to = int(rows.nbytes)
+    st.duration_memory_to = (t1 - t0) * 1e3
+    st.duration_in_gpu = (t2 - t1) * 1e3
+    if clock is not None:
+        (st.duration_huffman_coder, st.duration_dct_quantization,
+         st.duration_postprocessor) = clock.durations()
     return raw
