@@ -32,8 +32,13 @@ the first failure:
    encode with ``perf_stats`` on;
 5. the decode kernels (D1 huffman_decode, D2 idct_rgb) on phase 4's
    stream against their plain versions: D1 bit-exact and equal to the
-   native golden decoder, D2 equal before the colour transform except
-   |d| = 1 at IDCT .5 ties, its colour transform exact;
+   native golden decoder, and bit-exact on its corrupt-stream envelope
+   (``decode.envelope_rows``) with the Annex K tables and with a 16-bit
+   ZRL; D2 (a separable IDCT, its plain version the dense operator) equal
+   before the colour transform except |d| = 1 where the float64 value
+   lies within 2 * eps of .5 (the per-value tie rule of ``F32_EVALS``;
+   the count and the largest distance in eps are printed), its colour
+   transform exact;
 6. ``Decoder(backend="torch", device="cuda").decode`` end to end against
    the golden decoder (within 1 before the colour transform, 0.01 dB
    PSNR), a 256x256 stream on the card against the CPU plain path, the
@@ -63,8 +68,9 @@ the first failure:
    D1 equal to its plain version and the native golden decoder, D2p
    equal to its plain version and to the golden float64 IDCT except
    |d| = 1 at .5 ties, D3 bit-exact against its plain version and the
-   host ``postprocess``; D2p + D3 to RGB equal to D2 on the main path's
-   stream and on (e); kernel and plain times;
+   host ``postprocess``; D2p + D3 equal to D2 before the colour
+   transform under phase 5's tie rule on the main path's stream and on
+   (e), both timed to RGB; kernel and plain times;
 11. ``Decoder.decode`` end to end at 8K: (a) to I420 BT.709, (c) to RGB,
    (e) to RGB (D2) and to planar 4:4:4 YCbCr (D2p + D3): the route's
    kernels launched once per decode, the output the host postprocess of
@@ -114,8 +120,11 @@ REPLACES_E3 = ("gpujpeg_tpu/ops/entropy_v2.py:955 (merge, stuffing, RST) + "
                "gpujpeg_tpu/ops/entropy_v2.py:1317 + "
                "gpujpeg_tpu/ops/entropy_v2.py:1164 + "
                "gpujpeg_tpu/ops/entropy_v2.py:1603")
-D2_TIE_EPS = 1e-3        # |frac(y64) - .5| below which IDCT rounding may differ
-D2_MAX_TIE_SHARE = 1e-5  # D2 kernel vs plain: share of tie differences
+#: D2p (dense, like its plain version): |frac(y64) - .5| below which its
+#: rounding may differ, and the share of values that may. D2 (separable)
+#: takes the per-value rule of F32_EVALS instead
+D2P_TIE_EPS = 1e-3
+D2P_MAX_TIE_SHARE = 1e-5
 DEC_PSNR_DB = 0.01
 REPLACES_D1 = "gpujpeg_tpu/ops/pallas_decode_v3.py:100"
 REPLACES_D2 = ("gpujpeg_tpu/ops/pallas_decode_v3.py:596 + "
@@ -128,17 +137,9 @@ def fail(msg: str) -> None:
 
 
 def make_image(H: int, W: int, seed: int = 7) -> np.ndarray:
-    """The JAX package's bench frame (bench.make_image): smooth colour
-    gradients plus Gaussian noise, from a numpy seed."""
-    rng = np.random.default_rng(seed)
-    y, x = np.mgrid[0:H, 0:W]
-    img = np.stack([
-        128 + 90 * np.sin(x / 23.0) * np.cos(y / 17.0),
-        128 + 80 * np.cos(x / 31.0 + 1.0) * np.sin(y / 11.0),
-        128 + 70 * np.sin((x + y) / 41.0),
-    ], axis=-1)
-    img += rng.normal(0, 3.0, img.shape)
-    return np.clip(img, 0, 255).astype(np.uint8)
+    """The JAX package's bench frame (``tools.bench_frame``)."""
+    from gpujpeg_tpu_torch.tools import bench_frame
+    return bench_frame(H, W, seed)
 
 
 def card_line() -> str:
@@ -522,25 +523,6 @@ def perf_stats_encode(gj, raw, params, image) -> dict:
     return st
 
 
-def idct_tie_distance(ctx, info, coeff, diff) -> float:
-    """Largest |frac(y64) - .5| over the (row, col, component) entries of
-    the (H, W, 3) mask ``diff`` (y64: the float64 IDCT value + 128)."""
-    from gpujpeg_tpu_torch.tables import idct_dequant_matrix
-    ys, xs, cs = torch.nonzero(diff, as_tuple=True)
-    if ys.numel() == 0:
-        return 0.0
-    plan = ctx.plan
-    nbx, nblk = plan.image.width // 8, plan.n_blocks // 3
-    pos = (ys // 8) * nbx + xs // 8
-    row = pos * 3 + cs if ctx.interleaved else cs * nblk + pos
-    p = (ys % 8) * 8 + xs % 8
-    W64 = torch.stack([torch.as_tensor(idct_dequant_matrix(np.asarray(
-        info.quant_tables[info.components[c.index].quant_table_index])))
-        for c in plan.components]).to(coeff.device)      # (3, 64, 64)
-    y = (coeff[row].double() * W64[cs, :, p]).sum(1) + 128.0
-    return float((y - torch.floor(y) - 0.5).abs().max())
-
-
 def cuda_ms_once(fn):
     """(fn(), device ms of that one run by CUDA events)."""
     torch.cuda.synchronize()
@@ -553,6 +535,38 @@ def cuda_ms_once(fn):
     return out, start.elapsed_time(stop)
 
 
+def rgb_planes(px: torch.Tensor) -> np.ndarray:
+    """(H, W, 3) values -> the flat concatenated (H, W) planes of a 4:4:4
+    plan, on the host (``plane_ties``' layout)."""
+    return px.permute(2, 0, 1).reshape(-1).cpu().numpy()
+
+
+def d1_envelope_check() -> None:
+    """D1 against its plain version, bit for bit, on its corrupt-stream
+    envelope (``decode.envelope_rows``: random words, all ones, all
+    zeros, blocks that end where k + run passes 63, long codes, rows cut
+    short) with the Annex K tables and with the ZRL given a 16-bit
+    code."""
+    from gpujpeg_tpu_torch.ops import decode
+    n = 0
+    for zrl16 in (False, True):
+        rows, start, count, comp, dec, dcs, acs = decode.envelope_rows(
+            np.random.default_rng(11 + zrl16), zrl16, n_seg=8192, wcap=16)
+        decode.check_cover(start, count, comp.size)
+        args = [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in (
+            rows, start, count, comp, decode.wide_quick_tables(dec),
+            dec.maxcode, dec.delta, dec.huffval, dcs, acs)]
+        got = decode.huffman_decode(*args)
+        bad = int((got != decode.huffman_decode_plain(*args)).sum())
+        n += got.shape[0]
+        if bad:
+            fail(f"D1 disagrees with its plain version on the envelope rows "
+                 f"(zrl16={zrl16}): {bad} coefficients")
+    print(f"phase 5: D1 huffman_decode equal to its plain version on {n} "
+          f"envelope blocks (2 tables x {n // 2} blocks, rows of 16 words)",
+          flush=True)
+
+
 def phase_decode_kernels(gj, data: bytes, card: str) -> list[dict]:
     """Phase 5: D1 and D2 against their plain versions on the card."""
     from gpujpeg_tpu_torch.native import decode_segments_native
@@ -563,7 +577,7 @@ def phase_decode_kernels(gj, data: bytes, card: str) -> list[dict]:
         gj, data, out_images(gj)["c"], "cuda")
     t = ctx.tables
     H, W = ctx.shape
-    d1 = (rows, ctx.seg_start, ctx.seg_count, ctx.block_comp, t.quick,
+    d1 = (rows, ctx.seg_start, ctx.seg_count, ctx.block_comp, t.wide,
           t.maxcode, t.delta, t.huffval, t.dc_slot, t.ac_slot)
     coeff = decode.huffman_decode(*d1)
     coeff_p, d1_plain_ms = cuda_ms_once(lambda: decode.huffman_decode_plain(*d1))
@@ -578,29 +592,29 @@ def phase_decode_kernels(gj, data: bytes, card: str) -> list[dict]:
     if bad_p or bad_g:
         fail("D1 disagrees with its plain version or the golden decoder")
     del coeff_p, gold
+    d1_envelope_check()
 
     xf_id = transform_consts_tensor((None, None), "cuda")
-    d2_id = (coeff, t.wq, t.q_of, xf_id, ctx.interleaved, H, W)
+    d2_id = (coeff, t.quant, t.q_of, xf_id, ctx.interleaved, H, W)
     px = dct.idct_rgb(*d2_id)
-    px_p = dct.idct_rgb_plain(*d2_id)
-    d = (px.int() - px_p.int()).abs()
-    n_diff = int((d != 0).sum())
-    err2 = int(d.max())
-    tie_dist = idct_tie_distance(ctx, info, coeff, d != 0)
+    coeff_h = coeff.cpu().numpy()
+    n_diff, err2, _, tie_eps = plane_ties(
+        rgb_planes(px), rgb_planes(dct.idct_rgb_plain(*d2_id)), coeff_h, plan,
+        info)
     vals = ctx.xf.tolist()
     consts = (None, None) if vals[12] else (vals[:9], vals[9:12])
-    d2 = (coeff, t.wq, t.q_of, ctx.xf, ctx.interleaved, H, W)
+    d2 = (coeff, t.quant, t.q_of, ctx.xf, ctx.interleaved, H, W)
     rgb = dct.idct_rgb(*d2)
     rgb_own = planes_to_rgb(px.permute(2, 0, 1).int(), consts)
     xf_bad = int((rgb != rgb_own).sum())
     rgb_diff = int((rgb != dct.idct_rgb_plain(*d2)).any(2).sum())
     print(f"phase 5: D2 idct_rgb {n_diff} of {px.numel()} values differ "
           f"from the plain version before the colour transform, max |d| "
-          f"{err2}, farthest from a .5 tie {tie_dist:.3g}; {rgb_diff} RGB "
-          f"pixels differ; {xf_bad} bytes differ from the plain transform "
-          f"of the kernel's own values", flush=True)
-    if err2 > 1 or n_diff > D2_MAX_TIE_SHARE * px.numel() \
-            or tie_dist > D2_TIE_EPS:
+          f"{err2}, each within {tie_eps:.3g} eps of a .5 tie (allowed "
+          f"{F32_EVALS}); {rgb_diff} RGB pixels differ; {xf_bad} bytes "
+          f"differ from the plain transform of the kernel's own values",
+          flush=True)
+    if err2 > 1 or tie_eps > F32_EVALS:
         fail("D2 disagrees with its plain version beyond .5 ties")
     if xf_bad:
         fail("D2's inverse colour transform is not exact")
@@ -724,28 +738,25 @@ def phase_decode(gj, img, data: bytes, card: str) -> dict:
         small.reshape(-1), sp, si)
     s_cuda, _ = dec.decode(s_data)
     s_cpu, _ = gj.Decoder(backend="torch", device="cpu").decode(s_data)
-    info_s, _, _, ctx_s, rows_s = general_parts(gj, s_data, gj.ImageParameters(
-        width=256, height=256, color_space=gj.ColorSpace.RGB,
-        pixel_format=gj.PixelFormat.PF_444_U8_P012), "cuda")
-    coeff_s = decode.huffman_decode(
-        rows_s, ctx_s.seg_start, ctx_s.seg_count, ctx_s.block_comp,
-        *(getattr(ctx_s.tables, n) for n in (
-            "quick", "maxcode", "delta", "huffval", "dc_slot", "ac_slot")))
+    info_s, plan_s, _, ctx_s, rows_s = general_parts(
+        gj, s_data, gj.ImageParameters(
+            width=256, height=256, color_space=gj.ColorSpace.RGB,
+            pixel_format=gj.PixelFormat.PF_444_U8_P012), "cuda")
+    coeff_s = ctx_s.coefficients(rows_s).cpu().numpy()
     s_id = {}
     for device in ("cuda", "cpu"):
         dd = gj.Decoder(backend="torch", device=device)
         dd.set_output_format(info_s.color_space,
                              gj.PixelFormat.PF_444_U8_P012)
-        s_id[device] = torch.from_numpy(
-            dd.decode(s_data)[0].reshape(256, 256, 3).astype(np.int32))
-    s_diff = s_id["cuda"] != s_id["cpu"]
-    s_tie = idct_tie_distance(ctx_s, info_s, coeff_s, s_diff.cuda())
+        s_id[device] = rgb_planes(torch.from_numpy(
+            dd.decode(s_data)[0].reshape(256, 256, 3)))
+    s_n, s_err, _, s_tie = plane_ties(s_id["cuda"], s_id["cpu"], coeff_s,
+                                      plan_s, info_s)
     s_px = int((s_cuda != s_cpu).reshape(256, 256, 3).any(axis=2).sum())
-    print(f"phase 6: 256x256: {int(s_diff.sum())} values differ between "
-          f"the card and the CPU plain path before the colour transform "
-          f"(farthest from a .5 tie {s_tie:.3g}), {s_px} RGB pixels",
-          flush=True)
-    if (s_id["cuda"] - s_id["cpu"]).abs().max() > 1 or s_tie > D2_TIE_EPS:
+    print(f"phase 6: 256x256: {s_n} values differ between the card and "
+          f"the CPU plain path before the colour transform (each within "
+          f"{s_tie:.3g} eps of a .5 tie), {s_px} RGB pixels", flush=True)
+    if s_err > 1 or s_tie > F32_EVALS:
         fail("256x256 decode on the card differs from the CPU plain path "
              "beyond .5 ties")
 
@@ -1262,20 +1273,23 @@ def split_planes(flat: np.ndarray, plan) -> list:
     return out
 
 
-def plane_ties(a, b, coeff, plan, info) -> tuple[int, int, float]:
-    """(values that differ, max |d|, largest |frac(y64) - .5| over them)
-    between two flat plane arrays of one plan (y64: the float64 IDCT
-    value + 128 of the scan-order coefficients ``coeff``)."""
+def plane_ties(a, b, coeff, plan, info) -> tuple[int, int, float, float]:
+    """(values that differ, max |d|, largest |frac(y64) - .5| over them,
+    largest |frac(y64) - .5| / eps over them) between two flat plane
+    arrays of one plan (y64: the float64 IDCT value + 128 of the
+    scan-order coefficients ``coeff``; eps = F32_DOT_REL * (|x| @ |W| +
+    128), the float32 error bound of the dense and the separable IDCT)."""
     from gpujpeg_tpu_torch.tables import idct_dequant_matrix
     a, b = np.asarray(a), np.asarray(b)
     d = np.abs(a.astype(np.int32) - b.astype(np.int32))
     idx = np.flatnonzero(d)
     if idx.size == 0:
-        return 0, 0, 0.0
+        return 0, 0, 0.0, 0.0
     coeff = np.asarray(coeff)
     inv = np.empty(plan.n_blocks, np.int64)
     inv[plan.block_plane_idx] = np.arange(plan.n_blocks)
     dist = np.full(idx.size, np.inf)
+    eps = np.ones(idx.size)
     off = 0
     for c in plan.components:
         n = c.data_width * c.data_height
@@ -1286,11 +1300,14 @@ def plane_ties(a, b, coeff, plan, info) -> tuple[int, int, float]:
         p = (r % 8) * 8 + col % 8
         W64 = idct_dequant_matrix(np.asarray(
             info.quant_tables[info.components[c.index].quant_table_index]))
-        y = np.einsum("nk,nk->n", coeff[inv[pb]].astype(np.float64),
-                      W64[:, p].T) + 128.0
+        x = coeff[inv[pb]].astype(np.float64)
+        y = np.einsum("nk,nk->n", x, W64[:, p].T) + 128.0
         dist[sel] = np.abs(y - np.floor(y) - 0.5)
+        eps[sel] = F32_DOT_REL * (np.einsum("nk,nk->n", np.abs(x),
+                                            np.abs(W64[:, p].T)) + 128.0)
         off += n
-    return int(idx.size), int(d.max()), float(dist.max())
+    return (int(idx.size), int(d.max()), float(dist.max()),
+            float((dist / eps).max()))
 
 
 def phase_general_decode_kernels(gj, streams: dict, main_data: bytes,
@@ -1320,7 +1337,7 @@ def phase_general_decode_kernels(gj, streams: dict, main_data: bytes,
         if name == "d":
             continue
         t, b, g = ctx.tables, ctx.blocks, ctx.out
-        d1 = (rows, ctx.seg_start, ctx.seg_count, ctx.block_comp, t.quick,
+        d1 = (rows, ctx.seg_start, ctx.seg_count, ctx.block_comp, t.wide,
               t.maxcode, t.delta, t.huffval, t.dc_slot, t.ac_slot)
         coeff = decode.huffman_decode(*d1)
         coeff_p, d1_plain_ms = cuda_ms_once(
@@ -1334,11 +1351,12 @@ def phase_general_decode_kernels(gj, streams: dict, main_data: bytes,
         planes = dct.idct_planes(*d2p)
         planes_p = dct.idct_planes_plain(*d2p)
         planes_h = planes.cpu().numpy()
-        n_p, err_p, tie_p = plane_ties(planes_h, planes_p.cpu().numpy(),
-                                       coeff_h, plan, info)
+        n_p, err_p, tie_p, _ = plane_ties(planes_h, planes_p.cpu().numpy(),
+                                          coeff_h, plan, info)
         gold_pl = np.concatenate([p.reshape(-1) for p in
                                   golden_planes(info, plan, gold_c)])
-        n_g, err_g, tie_g = plane_ties(planes_h, gold_pl, coeff_h, plan, info)
+        n_g, err_g, tie_g, _ = plane_ties(planes_h, gold_pl, coeff_h, plan,
+                                          info)
         gold[name] = (plan, info, coeff_h, gold_pl)
         del planes_p, gold_c
         d3 = (planes, g)
@@ -1360,12 +1378,12 @@ def phase_general_decode_kernels(gj, streams: dict, main_data: bytes,
               flush=True)
         if bad_p or bad_g:
             fail(f"({name}): D1 disagrees with its plain version or golden")
-        if err_p > 1 or n_p > D2_MAX_TIE_SHARE * b.total \
-                or tie_p > D2_TIE_EPS:
+        if err_p > 1 or n_p > D2P_MAX_TIE_SHARE * b.total \
+                or tie_p > D2P_TIE_EPS:
             fail(f"({name}): D2p disagrees with its plain version beyond .5 "
                  "ties")
         if err_g > 1 or n_g > D2P_MAX_GOLDEN_SHARE * b.total \
-                or tie_g > D2_TIE_EPS:
+                or tie_g > D2P_TIE_EPS:
             fail(f"({name}): D2p disagrees with the golden IDCT beyond .5 "
                  "ties")
         if bad_d3:
@@ -1404,29 +1422,42 @@ def phase_general_decode_kernels(gj, streams: dict, main_data: bytes,
         del ctx, rows, coeff, planes, raw, raw_p
         torch.cuda.empty_cache()
 
-    # D2p + D3 to RGB equals D2 bit for bit on 4:4:4 streams; both timed
+    # D2p + D3 against D2 on 4:4:4 streams, before the colour transform
+    # (output in the stream's own colour space), by phase 5's tie rule;
+    # both timed to RGB
+    from gpujpeg_tpu_torch.ops.rgbpack import transform_consts_tensor
+    xf_id = transform_consts_tensor((None, None), "cuda")
     for name, data in (("main path", main_data), ("e", streams["e"])):
         info, plan, _, ctx, rows = general_parts(gj, data, outs["c"], "cuda")
         if not ctx.rgb_route:
             fail(f"{name}: the stream does not take the D2 route")
         coeff = ctx.coefficients(rows)
         t = ctx.tables
+        H, W = ctx.shape
         b = pre.block_geometry(plan, "cuda")
         og = pre.out_geometry(plan, outs["c"], "cuda")
+        og_id = pre.out_geometry(plan, gj.ImageParameters(
+            width=W, height=H, color_space=info.color_space,
+            pixel_format=gj.PixelFormat.PF_444_U8_P012), "cuda")
 
-        def tail():
+        def tail(geo):
             return pre.postprocess_planes(dct.idct_planes(
-                coeff, t.wq, t.q_of, b.blk, b.block_plane_idx, b.total), og)
-        by_d2, by_tail = ctx.pixels(coeff), tail()
-        n_bad = int((by_d2 != by_tail).sum())
+                coeff, t.wq, t.q_of, b.blk, b.block_plane_idx, b.total), geo)
+        by_d2 = dct.idct_rgb(coeff, t.quant, t.q_of, xf_id, ctx.interleaved,
+                             H, W)
+        n_bad, err, _, tie = plane_ties(
+            rgb_planes(by_d2), rgb_planes(tail(og_id).view(H, W, 3)),
+            coeff.cpu().numpy(), plan, info)
         d2_ms = cuda_ms(lambda: ctx.pixels(coeff), 10)
-        tail_ms = cuda_ms(tail, 10)
-        print(f"phase 10: {name}: D2p + D3 to RGB against D2: {n_bad} of "
-              f"{by_d2.numel()} bytes differ; {card}: D2 {d2_ms:.4f} ms, "
-              f"D2p + D3 {tail_ms:.4f} ms", flush=True)
-        if n_bad:
-            fail(f"{name}: D2p + D3 differs from D2")
-        del ctx, rows, coeff, by_d2, by_tail
+        tail_ms = cuda_ms(lambda: tail(og), 10)
+        print(f"phase 10: {name}: D2p + D3 against D2 before the colour "
+              f"transform: {n_bad} of {by_d2.numel()} values differ, max |d| "
+              f"{err}, each within {tie:.3g} eps of a .5 tie (allowed "
+              f"{F32_EVALS}); {card}: to RGB D2 {d2_ms:.4f} ms, D2p + D3 "
+              f"{tail_ms:.4f} ms", flush=True)
+        if err > 1 or tie > F32_EVALS:
+            fail(f"{name}: D2p + D3 differs from D2 beyond .5 ties")
+        del ctx, rows, coeff, by_d2
         torch.cuda.empty_cache()
     return rows_out, gold
 
@@ -1442,9 +1473,11 @@ def phase_general_decode(gj, img: np.ndarray, streams: dict, gold: dict,
     the launch counts of (a) and (e) to planar (K4 and K5 regimes)."""
     from gpujpeg_tpu_torch.ops import dct, decode, preprocess as pre
     from gpujpeg_tpu_torch.ops.decode import build_rows
+    from gpujpeg_tpu_torch.ops.rgbpack import transform_consts_tensor
     kernels = (decode.huffman_decode, dct.idct_rgb, dct.idct_planes,
                pre.postprocess_planes)
     outs = out_images(gj)
+    xf_id = transform_consts_tensor((None, None), "cuda")
     launches = {}
     for name in ("a", "c", "e-rgb", "e"):
         data = streams[name[0]]
@@ -1483,13 +1516,18 @@ def phase_general_decode(gj, img: np.ndarray, streams: dict, gold: dict,
         _, sd, segs = dec._plan_from_info(info)
         coeff = ctx.coefficients(torch.from_numpy(
             build_rows(plan, sd, segs)).cuda())
-        planes_h = dct.idct_planes(coeff, t.wq, t.q_of, b.blk,
-                                   b.block_plane_idx,
-                                   b.total).cpu().numpy()
+        if ctx.rgb_route:       # D2's own values before the transform
+            planes_h = rgb_planes(dct.idct_rgb(
+                coeff, t.quant, t.q_of, xf_id, ctx.interleaved, *ctx.shape))
+        else:
+            planes_h = dct.idct_planes(coeff, t.wq, t.q_of, b.blk,
+                                       b.block_plane_idx,
+                                       b.total).cpu().numpy()
         host = np.asarray(pre.postprocess(split_planes(planes_h, plan),
                                           out_image, plan, np))
         n_out = int((host != out).sum())
-        n_g, err_g, tie_g = plane_ties(planes_h, gold_pl, coeff_h, plan, info)
+        n_g, err_g, tie_g, tie_ge = plane_ties(planes_h, gold_pl, coeff_h,
+                                               plan, info)
         ref = make_raw(gj, img, out_image)
         gd = gj.Decoder(backend="golden")
         gd.set_output_format(out_image.color_space, out_image.pixel_format)
@@ -1502,7 +1540,8 @@ def phase_general_decode(gj, img: np.ndarray, streams: dict, gold: dict,
               f"bytes): launches {got}; {n_out} bytes differ from the host "
               f"postprocess of the card's planes; planes against golden "
               f"{n_g} values differ (max |d| {err_g}, farthest from a .5 tie "
-              f"{tie_g:.3g}); {n_diff} output bytes differ from the golden "
+              f"{tie_g:.3g}, {tie_ge:.3g} eps); {n_diff} output bytes differ "
+              f"from the golden "
               f"decoder's; PSNR {p_t:.4f} dB vs golden {p_g:.4f} dB",
               flush=True)
         print(f"phase 11 ({name}): {card}: decode first call {first_ms:.3f} "
@@ -1514,8 +1553,9 @@ def phase_general_decode(gj, img: np.ndarray, streams: dict, gold: dict,
         if n_out:
             fail(f"({name}): the output is not the postprocess of the card's "
                  "planes")
-        if err_g > 1 or n_g > D2P_MAX_GOLDEN_SHARE * b.total \
-                or tie_g > D2_TIE_EPS:
+        if err_g > 1 or (tie_ge > 1 if ctx.rgb_route else (
+                n_g > D2P_MAX_GOLDEN_SHARE * b.total
+                or tie_g > D2P_TIE_EPS)):
             fail(f"({name}): the planes differ from golden beyond .5 ties")
         if abs(p_t - p_g) > DEC_PSNR_DB:
             fail(f"({name}): PSNR differs from the golden decode's by more "
@@ -1544,7 +1584,10 @@ def phase_small_decode(gj) -> None:
     (``postprocess`` packs neither from one component)."""
     import gpujpeg_tpu_torch.models.decoder as dmod
     from gpujpeg_tpu_torch.ops import dct, preprocess as pre
+    from gpujpeg_tpu_torch.ops.rgbpack import (
+        planes_to_rgb, transform_consts_tensor)
     from gpujpeg_tpu_torch.stream.reader import read_image
+    xf_id = transform_consts_tensor((None, None), "cuda")
     planar = ("PF_422_U8_P1020", "PF_444_U8_P0P1P2", "PF_422_U8_P0P1P2",
               "PF_420_U8_P0P1P2")
     old = dmod.CPU_SEGMENT_THRESHOLD
@@ -1598,21 +1641,42 @@ def phase_small_decode(gj) -> None:
                                                      "cuda")
             coeff = ctx.coefficients(rows)
             t = ctx.tables
-            b = pre.block_geometry(plan, "cuda")
-            args = (coeff, t.wq, t.q_of, b.blk, b.block_plane_idx, b.total)
-            pl_card = dct.idct_planes(*args).cpu()
-            pl_cpu = dct.idct_planes_plain(*(a.cpu() if torch.is_tensor(a)
-                                             else a for a in args))
-            n_p, err_p, tie_p = plane_ties(pl_card.numpy(), pl_cpu.numpy(),
-                                           coeff.cpu().numpy(), plan, info)
-            own = pre.postprocess_planes_plain(
-                pl_card, pre.out_geometry(plan, out_image, "cpu")).numpy()
+            if ctx.rgb_route:
+                # D2 (separable) against the CPU's plain D2 (dense) before
+                # the colour transform, by phase 5's rule; the card's
+                # output is the transform of its own values
+                args = (coeff, t.quant, t.q_of, xf_id, ctx.interleaved,
+                        *ctx.shape)
+                vals = dct.idct_rgb(*args)
+                n_p, err_p, _, tie_p = plane_ties(
+                    rgb_planes(vals), rgb_planes(dct.idct_rgb_plain(*(
+                        a.cpu() if torch.is_tensor(a) else a for a in args))),
+                    coeff.cpu().numpy(), plan, info)
+                xv = ctx.xf.tolist()
+                own = planes_to_rgb(vals.permute(2, 0, 1).int(), (
+                    None, None) if xv[12] else (xv[:9], xv[9:12]))
+                own = own.reshape(-1).cpu().numpy()
+                bad = err_p > 1 or tie_p > F32_EVALS
+                unit = "eps"
+            else:
+                b = pre.block_geometry(plan, "cuda")
+                args = (coeff, t.wq, t.q_of, b.blk, b.block_plane_idx,
+                        b.total)
+                pl_card = dct.idct_planes(*args).cpu()
+                pl_cpu = dct.idct_planes_plain(*(
+                    a.cpu() if torch.is_tensor(a) else a for a in args))
+                n_p, err_p, tie_p, _ = plane_ties(
+                    pl_card.numpy(), pl_cpu.numpy(), coeff.cpu().numpy(),
+                    plan, info)
+                own = pre.postprocess_planes_plain(
+                    pl_card, pre.out_geometry(plan, out_image, "cpu")).numpy()
+                bad = err_p > 1 or tie_p > D2P_TIE_EPS
+                unit = "absolute"
             print(f"phase 12: {sname} {w}x{h} -> {opf}: the card's output "
                   f"differs from the CPU path's; {n_p} plane values differ "
-                  f"(max |d| {err_p}, farthest from a .5 tie {tie_p:.3g})",
-                  flush=True)
-            if not np.array_equal(own, res["cuda"]) or err_p > 1 \
-                    or tie_p > D2_TIE_EPS:
+                  f"(max |d| {err_p}, farthest from a .5 tie {tie_p:.3g}, "
+                  f"{unit})", flush=True)
+            if not np.array_equal(own, res["cuda"]) or bad:
                 fail(f"phase 12: {sname} {w}x{h} -> {opf}: the card differs "
                      "from the CPU path beyond .5 IDCT ties")
     finally:

@@ -36,9 +36,8 @@
 //     it reads their natural positions and biases once a strip.
 // The colour constants, divisors, biases and zig-zag table sit in shared
 // memory, read as broadcasts or once a strip.
-// The 8x8 factor is compiled in (`kD8`, tables.dct8_matrix in float32,
-// held equal to it by tests/test_torch_e1_separable.py) in the constant
-// bank, so the FMAs read it as an operand.
+// The 8x8 factor `kD8` and the zig-zag table come from dct8.cuh (shared
+// with D2's inverse).
 //
 // Numerics: the DCT runs on the raw pixels (no level shift) as a row pass
 // and a column pass of 8 terms each, each sum in k order with explicit
@@ -51,37 +50,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "dct8.cuh"
+
 namespace {
 
 constexpr int kTB = 32;             // blocks per strip
 constexpr int kThreads = kTB * 8;   // thread (b, r): block b, row/column r
 constexpr int kRowBytes = kTB * 24; // pixel bytes of one strip row
 constexpr int kTile = 65;           // floats per block and component tile
-
-// D[u][k] = c(u) cos((2k + 1) u pi / 16), c(0) = 1/sqrt(8), else 1/2
-__constant__ float kD8[64] = {
-    0.35355338f, 0.35355338f, 0.35355338f, 0.35355338f,
-    0.35355338f, 0.35355338f, 0.35355338f, 0.35355338f,
-    0.49039263f, 0.4157348f, 0.27778512f, 0.09754516f,
-    -0.09754516f, -0.27778512f, -0.4157348f, -0.49039263f,
-    0.46193975f, 0.19134171f, -0.19134171f, -0.46193975f,
-    -0.46193975f, -0.19134171f, 0.19134171f, 0.46193975f,
-    0.4157348f, -0.09754516f, -0.49039263f, -0.27778512f,
-    0.27778512f, 0.49039263f, 0.09754516f, -0.4157348f,
-    0.35355338f, -0.35355338f, -0.35355338f, 0.35355338f,
-    0.35355338f, -0.35355338f, -0.35355338f, 0.35355338f,
-    0.27778512f, -0.49039263f, 0.09754516f, 0.4157348f,
-    -0.4157348f, -0.09754516f, 0.49039263f, -0.27778512f,
-    0.19134171f, -0.46193975f, 0.46193975f, -0.19134171f,
-    -0.19134171f, 0.46193975f, -0.46193975f, 0.19134171f,
-    0.09754516f, -0.27778512f, 0.4157348f, -0.49039263f,
-    0.49039263f, -0.4157348f, 0.27778512f, -0.09754516f};
-
-__device__ const uint8_t kZigzagToNatural[64] = {
-    0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,
-    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28,
-    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
-    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63};
 
 // A strip's bytes, 8 rows of 24 * n, as this thread's share: up to eight
 // words in registers, in units of `ub` bytes: 16 (W a multiple of 16, so

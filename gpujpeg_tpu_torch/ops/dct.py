@@ -40,8 +40,15 @@ dequant+IDCT tail of ``pallas_decode_v3.run_pixels``, K2, the
 its plain torch version. Both compute ``clip(rint(x @ Wq + 128), 0,
 255)`` in float32 per component, with ``Wq`` the component's
 ``tables.idct_operator_f32``, then the exact integer inverse transform
-(``rgbpack.planes_to_rgb``). A value within float32 rounding of .5 may
-round differently between the two sums, so a pixel there can differ.
+(``rgbpack.planes_to_rgb``). Both take the zig-zag quant tables
+``quant``. The plain version builds the dense ``Wq`` from them and
+multiplies by it (the JAX package's ``dequant_idct_device``); the
+kernel dequantises by ``quant`` and runs E1's
+separable form backwards (a column pass and a row pass with
+``tables.dct8_matrix`` in float32). Either lies within ``2**-17 *
+(|x| @ |Wq| + 128)`` of the float64 value, so a value can round apart
+between them only where its float64 value lies within twice that
+bound of .5; a pixel there can differ.
 
 **D2p**: dequantisation + IDCT + unblockify into the component planes,
 for every plan. :func:`idct_planes` wraps ``csrc/idct_planes.cu``: D2's
@@ -51,13 +58,15 @@ tail after K4 or K5: the scan -> plane gather, ``dequant_idct_device``
 and ``blocks_to_plane``, ``jax_pipeline.py:1147-1184``). Its output is
 E0's layout, which D3 (``ops/preprocess.py:postprocess_planes``) packs.
 :func:`idct_planes_plain` is its plain torch version. On 4:4:4 input, D2p
-followed by D3 to RGB equals D2 bit for bit.
+followed by D3 to RGB equals D2 outside such ties.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .. import _build
+from ..tables import idct_dequant_matrix
 from .blocks import blocks_to_plane, plane_to_blocks
 from .entropy import _check as check_operands
 from .rgbpack import planes_to_rgb, rgb_to_planes
@@ -218,38 +227,42 @@ def quantize_plain(y: torch.Tensor, qdiv: torch.Tensor) -> torch.Tensor:
     return torch.round(y / qdiv).to(torch.int32)
 
 
-def _check_idct(coeff, wq, q_of, xf, H, W):
+def _check_idct(coeff, quant, q_of, xf, H, W):
     if H % 8 or W % 8 or H <= 0 or W <= 0:
         raise ValueError(f"image {W}x{H} is not a whole number of blocks")
-    n_q = wq.shape[0] if wq.dim() == 3 else 0
+    n_q = quant.shape[0] if quant.dim() == 2 else 0
     if not 1 <= n_q <= 3:
-        raise ValueError(f"wq must hold 1..3 operators, got {tuple(wq.shape)}")
+        raise ValueError(f"quant must hold 1..3 tables, got "
+                         f"{tuple(quant.shape)}")
     check_operands({"coeff": (coeff, (3 * (H // 8) * (W // 8), 64),
                               torch.int32),
-                    "wq": (wq, (n_q, 64, 64), torch.float32),
+                    "quant": (quant, (n_q, 64), torch.float32),
                     "q_of": (q_of, (3,), torch.int32),
                     "xf": (xf, (13,), torch.int32)}, coeff.device)
 
 
-def idct_rgb(coeff: torch.Tensor, wq: torch.Tensor, q_of: torch.Tensor,
+def idct_rgb(coeff: torch.Tensor, quant: torch.Tensor, q_of: torch.Tensor,
              xf: torch.Tensor, interleaved: bool, H: int,
              W: int) -> torch.Tensor:
     """(3*H/8*W/8, 64) int32 zig-zag coefficients in scan order (the
-    orders E1 writes) -> (H, W, 3) uint8 raw pixels. ``wq`` holds the
-    unique IDCT operators, ``q_of`` each component's index into them
-    (values below ``wq.shape[0]``), ``xf`` the inverse-transform
-    constants (``rgbpack.transform_consts_tensor``)."""
-    _check_idct(coeff, wq, q_of, xf, H, W)
+    orders E1 writes) -> (H, W, 3) uint8 raw pixels. ``quant`` holds the
+    unique zig-zag quant tables, ``q_of`` each component's index into
+    them (values below ``quant.shape[0]``), ``xf`` the inverse-transform
+    constants (``rgbpack.transform_consts_tensor``). On the card
+    ``coeff`` must start on a 16-byte boundary."""
+    _check_idct(coeff, quant, q_of, xf, H, W)
     if coeff.device.type == "cpu":
-        return idct_rgb_plain(coeff, wq, q_of, xf, interleaved, H, W)
+        return idct_rgb_plain(coeff, quant, q_of, xf, interleaved, H, W)
     if coeff.device.type != "cuda":
         raise ValueError(f"unsupported device {coeff.device}")
+    if coeff.data_ptr() % 16:
+        raise ValueError("coeff must start on a 16-byte boundary")
     out = torch.empty((H, W, 3), dtype=torch.uint8, device=coeff.device)
     lib = _build.load_kernels()
     err = lib.gj_idct_rgb(
-        coeff.data_ptr(), H, W, wq.data_ptr(), wq.shape[0], q_of.data_ptr(),
-        xf.data_ptr(), int(bool(interleaved)), out.data_ptr(),
-        torch.cuda.current_stream(coeff.device).cuda_stream)
+        coeff.data_ptr(), H, W, quant.data_ptr(), quant.shape[0],
+        q_of.data_ptr(), xf.data_ptr(), int(bool(interleaved)),
+        out.data_ptr(), torch.cuda.current_stream(coeff.device).cuda_stream)
     _build.check_launch("gj_idct_rgb", err)
     idct_rgb.launches += 1
     return out
@@ -258,11 +271,15 @@ def idct_rgb(coeff: torch.Tensor, wq: torch.Tensor, q_of: torch.Tensor,
 idct_rgb.launches = 0
 
 
-def idct_rgb_plain(coeff: torch.Tensor, wq: torch.Tensor, q_of: torch.Tensor,
-                   xf: torch.Tensor, interleaved: bool, H: int,
-                   W: int) -> torch.Tensor:
-    """Plain torch version of :func:`idct_rgb` (a float32 matmul; on a
-    CUDA tensor the caller keeps TF32 off)."""
+def idct_rgb_plain(coeff: torch.Tensor, quant: torch.Tensor,
+                   q_of: torch.Tensor, xf: torch.Tensor, interleaved: bool,
+                   H: int, W: int) -> torch.Tensor:
+    """Plain torch version of :func:`idct_rgb`: a float32 matmul by the
+    dense operators of ``quant`` (the float64 unit operator scaled by each
+    table, rounded once: ``tables.idct_operator_f32``; on a CUDA tensor
+    the caller keeps TF32 off)."""
+    unit = torch.from_numpy(idct_dequant_matrix(np.ones(64))).to(coeff.device)
+    wq = (unit * quant.to(torch.float64)[:, :, None]).to(torch.float32)
     nblk = (H // 8) * (W // 8)
     x = coeff.to(torch.float32)
     x = x.view(nblk, 3, 64).permute(1, 0, 2) if interleaved \

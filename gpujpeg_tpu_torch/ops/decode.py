@@ -8,9 +8,12 @@ the decode tables (:func:`build_dec_tables_v2`) and the DC-first table
 slots (:func:`table_slots`) are the reference's, bit for bit.
 
 **D1** :func:`huffman_decode` (``csrc/huffman_decode.cu``) decodes the
-rows to zig-zag coefficients in scan order, one thread per segment, for
-any plan: any block -> component map (interleaved MCUs of 3 to 10
-blocks, 1 to 4 components) and any row width. It is the counterpart of
+rows to zig-zag coefficients in scan order, one thread per segment
+(through the first-level table :func:`wide_quick_tables`, whose entries
+are the reference lookup's by construction, and the reference's maxcode
+compares where it misses), for any plan: any block
+-> component map (interleaved MCUs of 3 to 10 blocks, 1 to 4
+components) and any row width. It is the counterpart of
 the Huffman half of ``pallas_decode_v3.make_decode_kernel_v3`` (K2), of
 its coefficient form ``run_raw`` (K4, rows of at most ``V3_WCAP_MAX`` =
 384 words) and of the v2 decoder ``pallas_decode.make_decode_kernel``
@@ -46,6 +49,8 @@ from .entropy import _check as check_operands
 QUICK_BITS = 8
 #: JPEG allows at most four Huffman table slots per scan set
 MAX_SLOTS = 4
+#: lookahead bits of D1's first-level table (``wide_quick_tables``)
+WIDE_BITS = 11
 
 
 # ---------------------------------------------------------------------------
@@ -93,6 +98,44 @@ def build_dec_tables_v2(tables: list[HuffmanTable]) -> DecTables:
         maxcode[t, 17] = 1 << 30              # terminator (gpujpeg_table.c:423)
         delta[t, :] = (valptr - mincode)[:17]
     return DecTables(quick, maxcode, delta, huffval)
+
+
+def reference_lookup(dec: DecTables,
+                     peek16: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """(symbol, length), each (n_slots, P) int64, of the reference's
+    lookup (K2's ``lookup_sym``) of the 16-bit peeks ``peek16`` (P,) in
+    every slot: the quick table, else T.81 F.16's length by the maxcode
+    compares over 9..16 and ``huffval[clip(code + delta, 0, 255)]``; an
+    invalid code (length 17) is symbol 0 of one bit."""
+    peek = np.asarray(peek16, np.int64)[None, :]
+    q = dec.quick[:, peek[0] >> (16 - QUICK_BITS)].astype(np.int64)
+    mc = dec.maxcode[:, QUICK_BITS + 1:17].astype(np.int64)
+    s_len = QUICK_BITS + 1 + (peek[:, :, None] >= mc[:, None, :]).sum(2)
+    code = peek >> np.maximum(16 - s_len, 0)
+    v = np.clip(code + np.take_along_axis(
+        dec.delta.astype(np.int64), np.minimum(s_len, 16), 1), 0, 255)
+    hit = (q & 31) > 0
+    sym = np.where(hit, q >> 5, np.take_along_axis(
+        dec.huffval.astype(np.int64), v, 1))
+    ln = np.where(hit, q & 31, s_len)
+    bad = ln == 17
+    return np.where(bad, 0, sym), np.where(bad, 1, ln)
+
+
+def wide_quick_tables(dec: DecTables, bits: int = WIDE_BITS) -> np.ndarray:
+    """D1's first-level table, (n_slots, 2**bits) int32 ``sym << 5 |
+    len``: for each ``bits``-bit prefix, the reference lookup's (symbol,
+    length) where it is the same for every 16-bit peek that starts with
+    the prefix and the length is at most ``bits``; else 0 (D1 then takes
+    the reference's maxcode compares). So a hit equals the reference by
+    construction."""
+    sym, ln = reference_lookup(dec, np.arange(1 << 16))
+    n = sym.shape[0]
+    sym = sym.reshape(n, 1 << bits, -1)
+    ln = ln.reshape(n, 1 << bits, -1)
+    same = ((sym == sym[..., :1]).all(2) & (ln == ln[..., :1]).all(2)
+            & (ln[..., 0] <= bits))
+    return np.where(same, (sym[..., 0] << 5) | ln[..., 0], 0).astype(np.int32)
 
 
 def table_slots(plan, dc_by_comp, ac_by_comp):
@@ -199,6 +242,99 @@ def build_segment_rows_from_ranges(concat, lo, hi, S: int,
     return words.astype(np.uint32)
 
 
+def _pack_bits(fields) -> np.ndarray:
+    """(value, width) bit fields, MSB first, -> big-endian u32 words."""
+    bits = "".join(format(int(v), f"0{w}b") for v, w in fields if w)
+    bits += "0" * (-len(bits) % 32)
+    return np.asarray([int(bits[i:i + 32], 2)
+                       for i in range(0, len(bits), 32)], np.uint32)
+
+
+def _overflow_block(rng, dc, ac) -> list:
+    """One block's bit fields that end where k + run passes 63 (K2's
+    corrupt-stream rule): a DC, three ZRLs (k = 49) and ``k0 - 49`` single
+    coefficients, then a ZRL or a coefficient whose run passes 63, with
+    its value bits."""
+    def sym(t, s, cat=0):
+        return [(t.ehufco[s], t.ehufsi[s]),
+                (rng.integers(0, 1 << cat) if cat else 0, cat)]
+    k0 = int(rng.integers(49, 64))
+    out = sym(dc, 0) + sym(ac, 0xF0) * 3 + sym(ac, 0x01, 1) * (k0 - 49)
+    if rng.integers(0, 2):
+        return out + sym(ac, 0xF0)
+    run = int(rng.integers(64 - k0, 16))
+    cat = int(rng.integers(1, 11))
+    return out + sym(ac, (run << 4) | cat, cat)
+
+
+def _coded_block(rng, dc, ac) -> list:
+    """One valid block's bit fields: a DC difference and sparse AC values
+    up to 1023 after runs of up to 40 zeros (ZRLs included), EOB unless
+    the last value is at 63."""
+    def val(v):
+        c = int(abs(v)).bit_length()
+        return [(v if v > 0 else v + (1 << c) - 1, c)]
+    d = int(rng.integers(-2047, 2048))
+    c = int(abs(d)).bit_length()
+    out = [(dc.ehufco[c], dc.ehufsi[c])] + (val(d) if c else [])
+    k = 1
+    while True:
+        run = int(rng.integers(0, 41))
+        if k + run > 63:
+            break
+        k += run
+        while run > 15:
+            out.append((ac.ehufco[0xF0], ac.ehufsi[0xF0]))
+            run -= 16
+        v = int(rng.integers(1, 1024)) * (1 if rng.integers(0, 2) else -1)
+        c = int(abs(v)).bit_length()
+        s = (run << 4) | c
+        out += [(ac.ehufco[s], ac.ehufsi[s])] + val(v)
+        k += 1
+        if k > 63:
+            return out
+    return out + [(ac.ehufco[0], ac.ehufsi[0])]
+
+
+def envelope_rows(rng: np.random.Generator, zrl16: bool = False,
+                  n_seg: int = 128, blocks: int = 4, wcap: int = 8):
+    """D1's corrupt-stream envelope: (rows (n_seg, wcap) int32, seg_start,
+    seg_count, block_comp, DecTables, dc_slot, ac_slot), ``blocks``
+    blocks a segment, segment s of component ``s % 2`` with the Annex K
+    luma (0) or chroma (1) tables, the AC ZRL given a 16-bit code when
+    ``zrl16`` (``entropy.envelope_huffman_spec``). Segment kinds in
+    turn: random words (corrupt streams), all ones (invalid codes), all
+    zeros, blocks that end where k + run passes 63, and valid blocks with
+    long runs and large values (long codes). ``wcap`` is short, so most
+    rows are cut and reads run past them (zero words)."""
+    from ..tables import build_huffman_table
+    from ..types import ComponentType, HuffmanType
+    from .entropy import envelope_huffman_spec
+    spec = envelope_huffman_spec(zrl16)
+    tables = [tuple(build_huffman_table(*spec[ct, ht])
+                    for ht in (HuffmanType.DC, HuffmanType.AC))
+              for ct in (ComponentType.LUMINANCE, ComponentType.CHROMINANCE)]
+    rows = np.zeros((n_seg, wcap), np.uint32)
+    for s in range(n_seg):
+        dc, ac = tables[s % 2]
+        kind = s % 5
+        if kind == 0:
+            rows[s] = rng.integers(0, 1 << 32, wcap, dtype=np.uint64)
+        elif kind == 1:
+            rows[s] = 0xFFFFFFFF
+        elif kind in (3, 4):
+            make = _overflow_block if kind == 3 else _coded_block
+            words = _pack_bits([f for _ in range(blocks)
+                                for f in make(rng, dc, ac)])[:wcap]
+            rows[s, :words.size] = words
+    dec = build_dec_tables_v2([tables[0][0], tables[1][0], tables[0][1],
+                               tables[1][1]])
+    return (rows.view(np.int32), np.arange(n_seg, dtype=np.int32) * blocks,
+            np.full(n_seg, blocks, np.int32),
+            np.repeat(np.arange(n_seg, dtype=np.int32) % 2, blocks), dec,
+            np.array([0, 1, 1, 1], np.int32), np.array([2, 3, 3, 3], np.int32))
+
+
 def build_rows(plan, scan_data, segments_by_scan) -> np.ndarray:
     """The plan's (S, wcap) destuffed rows, viewed as int32 (the dtype
     D1 takes)."""
@@ -212,21 +348,21 @@ def build_rows(plan, scan_data, segments_by_scan) -> np.ndarray:
 # D1: Huffman decode
 # ---------------------------------------------------------------------------
 
-def _check(rows, seg_start, seg_count, block_comp, quick, maxcode, delta,
+def _check(rows, seg_start, seg_count, block_comp, wide, maxcode, delta,
            huffval, dc_slot, ac_slot):
-    if rows.dim() != 2 or block_comp.dim() != 1 or quick.dim() != 2:
-        raise ValueError("rows, block_comp and quick must be 2-, 1- and "
+    if rows.dim() != 2 or block_comp.dim() != 1 or wide.dim() != 2:
+        raise ValueError("rows, block_comp and wide must be 2-, 1- and "
                          "2-dimensional")
-    S, NB, n = rows.shape[0], block_comp.shape[0], quick.shape[0]
+    S, NB, n = rows.shape[0], block_comp.shape[0], wide.shape[0]
     if not 1 <= n <= MAX_SLOTS:
-        raise ValueError(f"quick must hold 1..{MAX_SLOTS} table slots, got "
-                         f"{tuple(quick.shape)}")
+        raise ValueError(f"wide must hold 1..{MAX_SLOTS} table slots, got "
+                         f"{tuple(wide.shape)}")
     i32 = torch.int32
     check_operands({"rows": (rows, rows.shape, i32),
                     "seg_start": (seg_start, (S,), i32),
                     "seg_count": (seg_count, (S,), i32),
                     "block_comp": (block_comp, (NB,), i32),
-                    "quick": (quick, (n, 1 << QUICK_BITS), i32),
+                    "wide": (wide, (n, 1 << WIDE_BITS), i32),
                     "maxcode": (maxcode, (n, 18), i32),
                     "delta": (delta, (n, 17), i32),
                     "huffval": (huffval, (n, 256), i32),
@@ -234,35 +370,56 @@ def _check(rows, seg_start, seg_count, block_comp, quick, maxcode, delta,
                     "ac_slot": (ac_slot, (4,), i32)}, rows.device)
 
 
+def check_cover(seg_start, seg_count, NB: int) -> None:
+    """Raise unless the segments, given as host arrays, cover blocks
+    ``[0, NB)`` exactly once: :func:`huffman_decode`'s precondition, since
+    its kernel writes only the blocks of its segments."""
+    st = np.asarray(seg_start, np.int64)
+    cnt = np.asarray(seg_count, np.int64)
+    live = cnt > 0
+    order = np.argsort(st[live], kind="stable")
+    lo, hi = st[live][order], (st + cnt)[live][order]
+    first, end = (int(lo[0]), int(hi[-1])) if lo.size else (0, 0)
+    if (cnt < 0).any() or first != 0 or end != NB \
+            or not np.array_equal(lo[1:], hi[:-1]):
+        raise ValueError(f"the segments (seg_start, seg_count) do not cover "
+                         f"blocks 0..{NB - 1} exactly once")
+
+
 def huffman_decode(rows: torch.Tensor, seg_start: torch.Tensor,
                    seg_count: torch.Tensor, block_comp: torch.Tensor,
-                   quick: torch.Tensor, maxcode: torch.Tensor,
+                   wide: torch.Tensor, maxcode: torch.Tensor,
                    delta: torch.Tensor, huffval: torch.Tensor,
                    dc_slot: torch.Tensor, ac_slot: torch.Tensor) -> torch.Tensor:
     """(S, wcap) int32 rows of destuffed big-endian words -> (NB, 64)
     int32 zig-zag coefficients in scan order. Segment ``s`` holds blocks
     ``seg_start[s] .. seg_start[s] + seg_count[s] - 1``; ``block_comp``
     gives each block's component, which picks its DC prediction and,
-    through ``dc_slot``/``ac_slot``, its table slots. The tables are
-    :class:`DecTables`' arrays. The segments must cover disjoint blocks,
-    as a plan's do."""
-    _check(rows, seg_start, seg_count, block_comp, quick, maxcode, delta,
+    through ``dc_slot``/``ac_slot``, its table slots. ``wide`` is the
+    :func:`wide_quick_tables` of the :class:`DecTables` whose other
+    arrays follow it. The output is not cleared: the segments must cover
+    blocks ``[0, NB)`` exactly once, as a plan's do (:func:`check_cover`
+    checks a segment map on the host). On the card the rows must start on
+    a 16-byte boundary."""
+    _check(rows, seg_start, seg_count, block_comp, wide, maxcode, delta,
            huffval, dc_slot, ac_slot)
     if rows.device.type == "cpu":
         return huffman_decode_plain(rows, seg_start, seg_count, block_comp,
-                                    quick, maxcode, delta, huffval,
+                                    wide, maxcode, delta, huffval,
                                     dc_slot, ac_slot)
     if rows.device.type != "cuda":
         raise ValueError(f"unsupported device {rows.device}")
+    if rows.data_ptr() % 16:
+        raise ValueError("rows must start on a 16-byte boundary")
     S, wcap = rows.shape
     NB = block_comp.shape[0]
-    out = torch.zeros((NB, 64), dtype=torch.int32, device=rows.device)
+    out = torch.empty((NB, 64), dtype=torch.int32, device=rows.device)
     lib = _build.load_kernels()
     err = lib.gj_huffman_decode(
         rows.data_ptr(), wcap, seg_start.data_ptr(), seg_count.data_ptr(), S,
-        block_comp.data_ptr(), quick.data_ptr(), maxcode.data_ptr(),
+        block_comp.data_ptr(), wide.data_ptr(), maxcode.data_ptr(),
         delta.data_ptr(), huffval.data_ptr(), dc_slot.data_ptr(),
-        ac_slot.data_ptr(), quick.shape[0], out.data_ptr(),
+        ac_slot.data_ptr(), wide.shape[0], out.data_ptr(),
         torch.cuda.current_stream(rows.device).cuda_stream)
     _build.check_launch("gj_huffman_decode", err)
     huffman_decode.launches += 1
@@ -297,13 +454,14 @@ def _wrap32(v: torch.Tensor) -> torch.Tensor:
 
 def huffman_decode_plain(rows: torch.Tensor, seg_start: torch.Tensor,
                          seg_count: torch.Tensor, block_comp: torch.Tensor,
-                         quick: torch.Tensor, maxcode: torch.Tensor,
+                         wide: torch.Tensor, maxcode: torch.Tensor,
                          delta: torch.Tensor, huffval: torch.Tensor,
                          dc_slot: torch.Tensor,
                          ac_slot: torch.Tensor) -> torch.Tensor:
     """Plain torch version of :func:`huffman_decode`: every segment in
     lockstep, one symbol per step, in int64; the only host sync per step
-    is the loop test."""
+    is the loop test. A miss in ``wide`` takes the reference's maxcode
+    compares over lengths 9..16."""
     dev = rows.device
     S, wcap = rows.shape
     NB = block_comp.shape[0]
@@ -311,7 +469,7 @@ def huffman_decode_plain(rows: torch.Tensor, seg_start: torch.Tensor,
                        torch.zeros((S, 2), dtype=torch.int64, device=dev)], 1)
     start, count = seg_start.to(torch.int64), seg_count.to(torch.int64)
     comp_of = block_comp.to(torch.int64)
-    quick_f, huff_f = quick.to(torch.int64).view(-1), \
+    wide_f, huff_f = wide.to(torch.int64).view(-1), \
         huffval.to(torch.int64).view(-1)
     delta_f = delta.to(torch.int64).view(-1)
     slow_mc = maxcode.to(torch.int64)[:, QUICK_BITS + 1:17]
@@ -335,7 +493,7 @@ def huffman_decode_plain(rows: torch.Tensor, seg_start: torch.Tensor,
         is_dc = kp == 0
         slot = torch.where(is_dc, dcs[comp], acs[comp])
         peek16 = view >> 16
-        q = quick_f[slot * (1 << QUICK_BITS) + (peek16 >> (16 - QUICK_BITS))]
+        q = wide_f[slot * (1 << WIDE_BITS) + (peek16 >> (16 - WIDE_BITS))]
         s_len = (QUICK_BITS + 1) + (peek16[:, None] >= slow_mc[slot]).sum(1)
         s_code = peek16 >> (16 - s_len).clamp(min=0)
         v_idx = (s_code + delta_f[slot * 17 + s_len.clamp(max=16)]).clamp(0, 255)

@@ -86,12 +86,11 @@ import numpy as np
 import torch
 
 from ..plan import CoderPlan
-from ..tables import (
-    decode_device_tables, device_tables, idct_operator_f32)
+from ..tables import decode_device_tables, device_tables
 from .dct import fdct_quant, fdct_quant_planes, idct_planes, idct_rgb
 from .decode import (
-    build_dec_tables_v2, build_rows, huffman_decode, quant_slots,
-    table_slots)
+    build_dec_tables_v2, build_rows, check_cover, huffman_decode,
+    quant_slots, table_slots, wide_quick_tables)
 from .entropy import build_seg_geometry, huffman_blocks, merge_stuff
 from .huffman_encode import compact_segments
 from .preprocess import (
@@ -316,6 +315,9 @@ class _DecContext:
             return torch.as_tensor(np.ascontiguousarray(a, np.int32),
                                    device=device)
 
+        # D1 writes only the blocks of its segments
+        check_cover(plan.seg_block_start, plan.seg_block_count,
+                    len(plan.block_comp))
         self.seg_start = t(plan.seg_block_start)
         self.seg_count = t(plan.seg_block_count)
         self.block_comp = t(plan.block_comp)
@@ -334,7 +336,7 @@ class _DecContext:
         by D1."""
         t = self.tables
         return huffman_decode(rows, self.seg_start, self.seg_count,
-                              self.block_comp, t.quick, t.maxcode, t.delta,
+                              self.block_comp, t.wide, t.maxcode, t.delta,
                               t.huffval, t.dc_slot, t.ac_slot)
 
     def pixels(self, coeff: torch.Tensor,
@@ -343,8 +345,8 @@ class _DecContext:
         by D2p + D3 (``clock`` marked between the two, or after D2)."""
         t = self.tables
         if self.rgb_route:
-            raw = idct_rgb(coeff, t.wq, t.q_of, self.xf, self.interleaved,
-                           *self.shape).view(-1)
+            raw = idct_rgb(coeff, t.quant, t.q_of, self.xf,
+                           self.interleaved, *self.shape).view(-1)
             _mark(clock)
             return raw
         b = self.blocks
@@ -375,9 +377,9 @@ def _dec_context(cache: dict, plan: CoderPlan, info, dc_by_comp, ac_by_comp,
            tabs.delta.tobytes(), tabs.huffval.tobytes())
     ctx = cache.get(key)
     if ctx is None:
-        wq = np.stack([idct_operator_f32(k) for k in qts])
         ctx = _DecContext(plan, out_image, decode_device_tables(
-            tabs, dc_slot, ac_slot, wq, q_of, device), device)
+            tabs, wide_quick_tables(tabs), dc_slot, ac_slot, qts, q_of,
+            device), device)
         while len(cache) >= DEC_CONTEXTS:
             cache.pop(next(iter(cache)))
         cache[key] = ctx

@@ -405,37 +405,44 @@ def device_tables(quant_zz: dict, huff: dict, device) -> DeviceTables:
 @dataclasses.dataclass(frozen=True)
 class DecodeTables:
     """The decoder's tables as tensors on one device (all int32 but
-    ``wq``)."""
+    ``wq`` and ``quant``)."""
 
-    quick: "torch.Tensor"    # (n_slots, 256) sym<<5 | len, len 0 = slow path
+    wide: "torch.Tensor"     # (n_slots, 2**WIDE_BITS) sym<<5 | len, 0 = miss
     maxcode: "torch.Tensor"  # (n_slots, 18) scaled to a 16-bit peek
     delta: "torch.Tensor"    # (n_slots, 17) valptr - mincode per length
     huffval: "torch.Tensor"  # (n_slots, 256)
     dc_slot: "torch.Tensor"  # (4,) component -> DC table slot
     ac_slot: "torch.Tensor"  # (4,) component -> AC table slot
     wq: "torch.Tensor"       # (n_q, 64, 64) float32 IDCT operators
-    q_of: "torch.Tensor"     # (C,) component -> wq index
+    quant: "torch.Tensor"    # (n_q, 64) float32 zig-zag quant tables of wq
+    q_of: "torch.Tensor"     # (C,) component -> wq / quant index
 
 
-def decode_device_tables(dec, dc_slot, ac_slot, wq, q_of,
+def decode_device_tables(dec, wide, dc_slot, ac_slot, qts, q_of,
                          device) -> DecodeTables:
     """Turn NumPy decode tables into the port's tensors on ``device``.
 
-    ``dec`` has the ``quick``/``maxcode``/``delta``/``huffval`` arrays of
+    ``dec`` has the ``maxcode``/``delta``/``huffval`` arrays of
     ``build_dec_tables_v2`` (the port's ``ops.decode.DecTables`` or the
-    JAX reference's, which are equal), ``dc_slot``/``ac_slot`` are the
-    (4,) slot maps, ``wq`` the stacked :func:`idct_operator_f32` arrays of
-    the unique quant tables and ``q_of`` each component's index into
-    them."""
+    JAX reference's, which are equal), ``wide`` its
+    ``ops.decode.wide_quick_tables`` (D1's first-level table, in place of
+    the reference's ``quick``), ``dc_slot``/``ac_slot`` are the
+    (4,) slot maps, ``qts`` the unique zig-zag quant tables (tuples of 64
+    ints; ``wq`` holds their :func:`idct_operator_f32`, ``quant`` their
+    values) and ``q_of`` each component's index into them."""
     import torch
 
     def i32(a):
         return torch.as_tensor(np.ascontiguousarray(a, np.int32),
                                device=device)
 
+    def f32(a):
+        return torch.as_tensor(np.ascontiguousarray(a, np.float32),
+                               device=device)
+
     return DecodeTables(
-        quick=i32(dec.quick), maxcode=i32(dec.maxcode), delta=i32(dec.delta),
+        wide=i32(wide), maxcode=i32(dec.maxcode), delta=i32(dec.delta),
         huffval=i32(dec.huffval), dc_slot=i32(dc_slot), ac_slot=i32(ac_slot),
-        wq=torch.as_tensor(np.ascontiguousarray(wq, np.float32),
-                           device=device),
+        wq=f32(np.stack([idct_operator_f32(tuple(k)) for k in qts])),
+        quant=f32(np.asarray(qts, np.float32).reshape(-1, 64)),
         q_of=i32(q_of))

@@ -21,10 +21,25 @@ from __future__ import annotations
 import argparse
 import time
 
+import numpy as np
 import torch
 
 #: the JAX scripts' frame
 HEIGHT, WIDTH = 4320, 7680
+
+
+def bench_frame(H: int, W: int, seed: int = 7) -> np.ndarray:
+    """The JAX package's bench frame (bench.make_image): smooth colour
+    gradients plus Gaussian noise, (H, W, 3) uint8 from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:H, 0:W]
+    img = np.stack([
+        128 + 90 * np.sin(x / 23.0) * np.cos(y / 17.0),
+        128 + 80 * np.cos(x / 31.0 + 1.0) * np.sin(y / 11.0),
+        128 + 70 * np.sin((x + y) / 41.0),
+    ], axis=-1)
+    img += rng.normal(0, 3.0, img.shape)
+    return np.clip(img, 0, 255).astype(np.uint8)
 
 
 def parse_args(description: str, stages: tuple,

@@ -68,7 +68,7 @@ def _port_parts(data):
 def _d1(ctx, rows):
     t = ctx.tables
     return decode.huffman_decode(rows, ctx.seg_start, ctx.seg_count,
-                                 ctx.block_comp, t.quick, t.maxcode, t.delta,
+                                 ctx.block_comp, t.wide, t.maxcode, t.delta,
                                  t.huffval, t.dc_slot, t.ac_slot)
 
 
@@ -210,7 +210,7 @@ def test_plain_d2_matches_jax_tail(h, w):
     info, plan, ctx, rows = _port_parts(data)
     coeff = _d1(ctx, rows)
     t = ctx.tables
-    got = dct.idct_rgb(coeff, t.wq, t.q_of, ctx.xf, ctx.interleaved, h, w)
+    got = dct.idct_rgb(coeff, t.quant, t.q_of, ctx.xf, ctx.interleaved, h, w)
     assert got.shape == (h, w, 3) and got.dtype == torch.uint8
 
     rinfo = ref_read_image(data)

@@ -99,13 +99,17 @@ def test_separable_order_within_the_f32_bound(q):
 
 
 def test_kernel_factor_is_dct8_in_float32():
-    """``csrc/fdct_quant.cu`` compiles in the 8x8 factor (``kD8``); its
+    """``csrc/dct8.cuh``, which E1 (``fdct_quant.cu``) and D2
+    (``idct_rgb.cu``) include, compiles in the 8x8 factor (``kD8``); its
     64 literals are ``tables.dct8_matrix()`` rounded to float32, the JAX
     package's factor."""
     import os
     import re
     from gpujpeg_tpu_torch import _build
-    with open(os.path.join(_build.CSRC, "fdct_quant.cu")) as f:
+    for name in ("fdct_quant.cu", "idct_rgb.cu"):
+        with open(os.path.join(_build.CSRC, name)) as f:
+            assert '#include "dct8.cuh"' in f.read()
+    with open(os.path.join(_build.CSRC, "dct8.cuh")) as f:
         src = f.read()
     body = re.search(r"__constant__ float kD8\[64\] = \{([^}]*)\};", src)
     assert body is not None

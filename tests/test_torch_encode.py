@@ -250,12 +250,12 @@ def test_wrappers_take_plain_versions_only_on_cpu():
         [port.Encoder(backend="golden")._tables(port.Parameters())[1][k]
          for k in sorted(ctx.tables.huff)])
     slots = np.array([0, 2, 2, 0], np.int32)     # luma, chroma, chroma
-    dt = decode_device_tables(tabs, slots, slots + 1,
-                              np.zeros((2, 64, 64), np.float32),
+    dt = decode_device_tables(tabs, decode.wide_quick_tables(tabs), slots,
+                              slots + 1, [(1,) * 64, (2,) * 64],
                               np.array([0, 1, 1], np.int32), CPU)
     g = ctx.geo
     d1 = (torch.zeros((g.seg_start.shape[0], 4), dtype=torch.int32),
-          g.seg_start, g.seg_count, g.block_cls, dt.quick, dt.maxcode,
+          g.seg_start, g.seg_count, g.block_cls, dt.wide, dt.maxcode,
           dt.delta, dt.huffval, dt.dc_slot, dt.ac_slot)
     coeff = decode.huffman_decode(*d1)
     assert coeff.shape == (g.block_cls.shape[0], 64)
@@ -263,7 +263,7 @@ def test_wrappers_take_plain_versions_only_on_cpu():
         decode.huffman_decode(*(a.to("meta") for a in d1))
     with pytest.raises(ValueError):
         decode.huffman_decode(d1[0][:, :0].t(), *d1[1:])
-    d2 = (coeff, dt.wq, dt.q_of, ctx.xf)
+    d2 = (coeff, dt.quant, dt.q_of, ctx.xf)
     assert dct.idct_rgb(*d2, False, 16, 16).shape == (16, 16, 3)
     with pytest.raises(ValueError, match="device"):
         dct.idct_rgb(*(a.to("meta") for a in d2), False, 16, 16)

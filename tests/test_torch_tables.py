@@ -1,6 +1,8 @@
 """Carrying the reference's tables across: ``tables.device_tables`` turns
 the JAX package's NumPy tables into the port's tensors, and the port's
 encode with those tensors matches the reference's encode."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -79,6 +81,7 @@ def test_decode_tables_carry_reference_tables(q):
     port's tables."""
     from gpujpeg_tpu.ops.dct import idct_operator_f32 as ref_idct
     from gpujpeg_tpu.ops.pallas_decode import build_dec_tables_v2 as ref_dec
+    from gpujpeg_tpu.tables import quant_table_zz as ref_quant_zz
     from gpujpeg_tpu.stream.reader import read_image as ref_read
     from gpujpeg_tpu.models.decoder import huffman_maps as ref_maps
     from gpujpeg_tpu_torch.models.decoder import huffman_maps
@@ -104,20 +107,38 @@ def test_decode_tables_carry_reference_tables(q):
     rinfo = ref_read(data)
     uniq, dc_slot, ac_slot = decode.table_slots(plan, *ref_maps(rinfo))
     qts, q_of = decode.quant_slots(plan, rinfo)
-    ref_t = decode_device_tables(
-        ref_dec(uniq), dc_slot, ac_slot, np.stack([ref_idct(k) for k in qts]),
-        q_of, torch.device("cpu"))
-    for name in ("quick", "maxcode", "delta", "huffval", "dc_slot",
-                 "ac_slot", "wq", "q_of"):
+    ref_tabs = ref_dec(uniq)
+    # the quant tables the stream was written with, as the JAX package
+    # builds them (luma, chroma; one table where they are equal)
+    ref_quant = list(dict.fromkeys(
+        tuple(int(v) for v in ref_quant_zz(ct, q))
+        for ct in (ref.ComponentType.LUMINANCE,
+                   ref.ComponentType.CHROMINANCE)))
+    ref_t = dataclasses.replace(
+        decode_device_tables(ref_tabs, decode.wide_quick_tables(ref_tabs),
+                             dc_slot, ac_slot, qts, q_of,
+                             torch.device("cpu")),
+        wq=torch.as_tensor(np.stack([ref_idct(k) for k in qts])),
+        quant=torch.tensor(ref_quant, dtype=torch.float32))
+    for name in ("wide", "maxcode", "delta", "huffval", "dc_slot",
+                 "ac_slot", "wq", "quant", "q_of"):
         assert torch.equal(getattr(ref_t, name), getattr(ctx.tables, name))
+    # the wide table extends the reference's quick table: an 11-bit
+    # prefix whose 8-bit prefix hits there holds the same entry
+    quick = torch.as_tensor(ref_tabs.quick)
+    hit = (quick & 31) > 0
+    wide = ctx.tables.wide.view(quick.shape[0], 256, -1)
+    assert hit.any()
+    assert torch.equal(wide[hit], quick[hit][:, None].expand(
+        -1, wide.shape[2]))
 
     rows = torch.from_numpy(decode.build_rows(plan, scan_data, segs))
     outs = []
     for t in (ref_t, ctx.tables):
         coeff = decode.huffman_decode(
-            rows, ctx.seg_start, ctx.seg_count, ctx.block_comp, t.quick,
+            rows, ctx.seg_start, ctx.seg_count, ctx.block_comp, t.wide,
             t.maxcode, t.delta, t.huffval, t.dc_slot, t.ac_slot)
-        outs.append((coeff, dct.idct_rgb(coeff, t.wq, t.q_of, ctx.xf,
+        outs.append((coeff, dct.idct_rgb(coeff, t.quant, t.q_of, ctx.xf,
                                          False, h, w)))
     assert torch.equal(outs[0][0], outs[1][0])
     assert torch.equal(outs[0][1], outs[1][1])
