@@ -19,7 +19,10 @@ the first failure:
    printed), E2 and E3 fed the same inputs and bit-exact; E2 also
    bit-exact on E2's envelope blocks (``entropy.envelope_blocks``: runs
    over 15, 63 without EOB, all-zero AC, |v| to 2047) with the Annex K
-   tables and with a 16-bit ZRL; with both times and the bound;
+   tables and with a 16-bit ZRL, E3 on its envelope segments
+   (``entropy.envelope_segments``: 1 to 100 blocks, strings of 1 to
+   1,792 bits, rows stuffed to the worst case); with both times and the
+   bound;
 4. ``Encoder(backend="torch", device="cuda").encode`` end to end at that
    size with every kernel's launch count above 0, the stream decoded by
    the port's golden decoder to within 0.1 dB PSNR of the golden
@@ -89,8 +92,13 @@ the first failure:
    equal in every segment without a .5 tie, with E12's time beside E1p +
    E2's; (iii) each of E12's stop modes against its plain version on
    ablate_stage1's inputs, with its time; (iv) copy_bytes byte-exact,
-   its rate beside ``Tensor.clone()``'s and the bound; (v) E0 on
-   perf_rgbpack's frame equal to its plain version, beside the copy.
+   its rate beside ``Tensor.clone()``'s (timed in turns, by the plain
+   events and with the runs held) and the bound, its launch shape that
+   of the tool's ``copy_grid``, and byte-exact on every length of
+   ``COPY_EDGE_LENGTHS`` from and to every offset of
+   ``COPY_EDGE_OFFSETS``, the bytes around the destination untouched;
+   (v) E0 on perf_rgbpack's frame equal to its plain version, beside the
+   copy.
 
 The line before the last is a JSON object with every kernel's numbers
 (its time, plain time, bound and launches on its path); the last line is
@@ -268,6 +276,7 @@ def phase_kernels(ctx, rgb) -> list[dict]:
           f"{int(out_len.sum())} bytes", flush=True)
     if meta_bad or byte_bad:
         fail("E3 disagrees with its plain version")
+    e3_envelope_check(out.device)
 
     words_used = used_word_bytes(bits)
     rows = []
@@ -330,6 +339,29 @@ def e2_envelope_check(device) -> None:
     print(f"phase 3: E2 huffman_blocks equal to its plain version on {n} "
           f"envelope blocks x 2 tables x 2 classes (max {int(bits_p.max())} "
           f"bits a block)", flush=True)
+
+
+def e3_envelope_check(device) -> None:
+    """E3 against its plain version, bit for bit, on its envelope segments
+    (``entropy.envelope_segments``: 1 to 100 blocks a segment, blocks of
+    1 to 1,792 bits, rows stuffed to the worst case, a last segment
+    without a marker)."""
+    from gpujpeg_tpu_torch.ops import entropy
+    env = entropy.envelope_segments(np.random.default_rng(8))
+    e3 = (*(torch.from_numpy(a).to(device) for a in env[:6]), env[6])
+    out, out_len, seg_bits, n_ff = entropy.merge_stuff(*e3)
+    out_p, out_len_p, seg_bits_p, n_ff_p = entropy.merge_stuff_plain(*e3)
+    valid = (torch.arange(env[6], device=device)[None, :]
+             < out_len_p[:, None])
+    bad = int(((out_len != out_len_p) | (seg_bits != seg_bits_p)
+               | (n_ff != n_ff_p)).sum()) + int(((out != out_p) & valid).sum())
+    if bad:
+        fail(f"E3 disagrees with its plain version on the envelope "
+             f"segments: {bad} lengths and bytes")
+    print(f"phase 3: E3 merge_stuff equal to its plain version on "
+          f"{out_len.numel()} envelope segments ({int(e3[3].min())}-"
+          f"{int(e3[3].max())} blocks, {int(out_len.sum())} bytes, "
+          f"{int(n_ff.sum())} stuffed)", flush=True)
 
 
 def stage_ms(enc, ctx, raw, quant_zz, huff) -> np.ndarray:
@@ -1697,6 +1729,50 @@ REPLACES_S3 = "scripts/perf_rgbpack.py:47"
 #: E12 (and its stop modes) vs plain: share of blocks that may differ,
 #: each at a .5 tie of its float64 quotients
 E12_MAX_TIE_SHARE = 1e-6
+#: phase 13 (iv): copy_bytes's lengths, and the byte offsets of source
+#: and destination from a 16-byte boundary
+COPY_EDGE_LENGTHS = (0, 1, 15, 16, 17, 4095, (1 << 20) + 3)
+COPY_EDGE_OFFSETS = (0, 1, 8, 15)
+COPY_GUARD = 64
+
+
+def copy_edges_check(dev) -> int:
+    """copy_bytes's C entry (the wrapper's kernel; the wrapper allocates
+    an aligned destination) for every length of COPY_EDGE_LENGTHS from
+    every source offset to every destination offset of
+    COPY_EDGE_OFFSETS, each into a buffer with COPY_GUARD bytes on either
+    side: the copy must be byte-exact and the guards untouched. Returns
+    the number of copies. Each length's launch must be the tool's
+    ``copy_grid``."""
+    from gpujpeg_tpu_torch import _build
+    from gpujpeg_tpu_torch.tools import perf_stage1
+    lib = _build.load_kernels()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    n_max = max(COPY_EDGE_LENGTHS)
+    src = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 256, n_max + 16, dtype=np.uint8)).to(dev)
+    n = 0
+    for length in COPY_EDGE_LENGTHS:
+        if perf_stage1.copy_launch(length) != perf_stage1.copy_grid(length):
+            fail(f"(iv): copy_bytes launches {perf_stage1.copy_launch(length)}"
+                 f" for {length} bytes, copy_grid says "
+                 f"{perf_stage1.copy_grid(length)}")
+        for so in COPY_EDGE_OFFSETS:
+            for do in COPY_EDGE_OFFSETS:
+                dst = torch.full((length + 16 + 2 * COPY_GUARD,), 0xA5,
+                                 dtype=torch.uint8, device=dev)
+                want = dst.clone()
+                d0 = COPY_GUARD + do
+                want[d0:d0 + length] = src[so:so + length]
+                _build.check_launch("gj_copy_bytes", lib.gj_copy_bytes(
+                    src.data_ptr() + so, dst.data_ptr() + d0, length,
+                    stream))
+                if not torch.equal(dst, want):
+                    fail(f"(iv): copy_bytes of {length} bytes from offset "
+                         f"{so} to offset {do} is not byte-exact or writes "
+                         f"outside its destination")
+                n += 1
+    return n
 
 
 def e12_mismatch(kern, plain, cap_words: int, stop: str) -> torch.Tensor:
@@ -1908,9 +1984,16 @@ def phase_stage1(gj, img: np.ndarray, card: str) -> tuple[list, dict]:
     print(f"phase 13 (iv): copy_bytes {x.numel()} bytes byte-exact; {card}: "
           f"{c['ms']:.4f} ms ({2 * x.numel() / c['ms'] / 1e9:.4f} TB/s), clone() "
           f"{c['clone_ms']:.4f} ms ({2 * x.numel() / c['clone_ms'] / 1e9:.4f} "
-          f"TB/s), bound {bnd['bound_ms']:.4f} ms", flush=True)
+          f"TB/s); runs held: {c['ms_held']:.4f} ms, clone() "
+          f"{c['clone_ms_held']:.4f} ms; bound {bnd['bound_ms']:.4f} ms",
+          flush=True)
     row("copy_bytes", "copy_bytes.cu", REPLACES_S1, c["ms"], p_ms, 0, bnd,
         c["clone_ms"])
+    n_edge = copy_edges_check(dev)
+    print(f"phase 13 (iv): copy_bytes byte-exact in {n_edge} copies of "
+          f"{list(COPY_EDGE_LENGTHS)} bytes from and to offsets "
+          f"{list(COPY_EDGE_OFFSETS)}, {COPY_GUARD} guard bytes each side "
+          "untouched", flush=True)
 
     # (v) E0 on perf_rgbpack's frame (the tool held it to its plain version)
     plan = perf_stage1.stage1_plan(H8K, W8K)[0]

@@ -51,6 +51,7 @@ SIGNATURES = {
     "gj_dct_huffman_blocks": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _P, _P, _P],
     "gj_copy_bytes": [_P, _P, _L, _P],
+    "gj_copy_bytes_grid": [_L, _P, _P],
 }
 
 

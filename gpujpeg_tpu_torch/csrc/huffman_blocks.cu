@@ -51,17 +51,13 @@
 #include <stdint.h>
 
 #include "bitsink.cuh"
+#include "warp_bits.cuh"
 
 namespace {
 
 constexpr int kWarps = 32;         // warps per CTA
 constexpr int kCap = 56;           // words of a block's row (BLOCK_CAP_WORDS)
 constexpr unsigned kAll = 0xffffffffu;
-
-// The low `len` (<= 32) bits of `val`.
-__device__ __forceinline__ uint32_t low_bits(uint32_t val, int len) {
-  return len < 32 ? val & ((1u << len) - 1u) : val;
-}
 
 // OR a field of `len` (1..32) bits at bit offset `off` of a string of at
 // most 64 bits into its two words (register form).
@@ -70,21 +66,6 @@ __device__ __forceinline__ void or_field2(uint32_t& w0, uint32_t& w1, int off,
   const uint64_t win = (uint64_t)val << (64 - off - len);
   w0 |= (uint32_t)(win >> 32);
   w1 |= (uint32_t)win;
-}
-
-// OR a field of `len` (1..32) bits at bit offset `off` into the row
-// (shared form): one word or two; words past the row are dropped.
-__device__ __forceinline__ void or_field_row(uint32_t* row, int off,
-                                             uint32_t val, int len) {
-  const int w = off >> 5;
-  const int e = (off & 31) + len;  // end bit within word w's pair
-  if (w >= kCap) return;
-  if (e <= 32) {
-    atomicOr(&row[w], val << (32 - e));
-  } else {
-    atomicOr(&row[w], val >> (e - 32));
-    if (w + 1 < kCap) atomicOr(&row[w + 1], val << (64 - e));
-  }
 }
 
 __device__ __forceinline__ int2 load_pair(const int32_t* coeff, int b,
@@ -134,12 +115,7 @@ __device__ __forceinline__ void code_block(int b, int2 v, int k, int pdc,
                                len_c);
 
   const int len = (za + zc) * zl + len_a + len_c;
-  int incl = len;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int n = __shfl_up_sync(kAll, incl, d);
-    if (lane >= d) incl += n;
-  }
+  const int incl = warp_inclusive_scan(len, lane);
   const int total = __shfl_sync(kAll, incl, 31);
   const int off = incl - len;        // the lane's ZRLs of chunk a start here
   const int off_a = off + za * zl;   // chunk a's field
@@ -161,12 +137,12 @@ __device__ __forceinline__ void code_block(int b, int2 v, int k, int pdc,
     if (lane < ((total + 31) >> 5)) words[(size_t)b * kCap + lane] =
         lane ? w1 : w0;
   } else {
-    if (len_a) or_field_row(row, off_a, sa, len_a);
-    if (len_c) or_field_row(row, off_c, sc, len_c);
+    if (len_a) or_field_row(row, kCap, off_a, sa, len_a);
+    if (len_c) or_field_row(row, kCap, off_c, sc, len_c);
     if (zrls) {
       for (int j = 0; j < 3; ++j) {
-        if (j < za) or_field_row(row, off + j * zl, zcode, zl);
-        if (j < zc) or_field_row(row, off_a + len_a + j * zl, zcode, zl);
+        if (j < za) or_field_row(row, kCap, off + j * zl, zcode, zl);
+        if (j < zc) or_field_row(row, kCap, off_a + len_a + j * zl, zcode, zl);
       }
     }
     __syncwarp();

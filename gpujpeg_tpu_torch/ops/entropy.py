@@ -13,9 +13,10 @@ work:
   bit offsets from a warp scan), writes the block's bit string into a
   scratch row of one worst-case capacity (:data:`BLOCK_CAP_WORDS`) and
   its bit length.
-* **E3** :func:`merge_stuff` (``csrc/merge_stuff.cu``): one thread per
-  segment concatenates its blocks' strings, pads with 1-bits, stuffs
-  0xFF bytes and appends the RST marker.
+* **E3** :func:`merge_stuff` (``csrc/merge_stuff.cu``): one warp per
+  segment concatenates its blocks' strings in steps of up to 32 blocks
+  (bit offsets from a warp scan, the strings ORed into a shared window),
+  pads with 1-bits, stuffs 0xFF bytes and appends the RST marker.
 
 Capacities are worst-case, so nothing overflows and the reference's
 tier-1/tier-2 budgets and overflow retry have no counterpart here. The
@@ -596,6 +597,52 @@ def from_pair_rows(pb2: np.ndarray, diff2: np.ndarray, cls2: np.ndarray,
 # ---------------------------------------------------------------------------
 # E3: per-segment merge, stuffing, RST
 # ---------------------------------------------------------------------------
+
+#: blocks per segment and bit lengths per block in
+#: :func:`envelope_segments`: under, at and over one and two warp rounds of
+#: 32 blocks, and under, at and over a byte and a word, up to a full row
+ENVELOPE_SEG_BLOCKS = (1, 31, 32, 33, 64, 100)
+ENVELOPE_BLOCK_BITS = (1, 7, 8, 9, 31, 32, 33, BLOCK_CAP_BYTES * 8)
+
+
+def envelope_segments(rng: np.random.Generator):
+    """E3's envelope: ``(words, bits, seg_start, seg_count, rst, has_rst,
+    cap_out)`` as NumPy int32 arrays and the row capacity, with segments
+    of every count of :data:`ENVELOPE_SEG_BLOCKS` (random lengths from
+    :data:`ENVELOPE_BLOCK_BITS`), one of 33 blocks for each length (bit
+    totals that are a multiple of 8 and others), two adjacent segments
+    of the longest count whose blocks are all-ones full rows (every byte
+    stuffed: they fill their rows to the worst case
+    :func:`segment_out_capacity` sizes) and one that mixes all-ones
+    strings of every length with random ones. String bits are random
+    (all-ones where said); the bits of a row past its string are random
+    too, since E2 leaves them unwritten. Markers cycle 0xD0..0xD7; the
+    last segment has none."""
+    cap_bits = BLOCK_CAP_WORDS * 32
+    lengths = np.asarray(ENVELOPE_BLOCK_BITS)
+    n_max = max(ENVELOPE_SEG_BLOCKS)
+    segs = [(rng.choice(lengths, n), False) for n in ENVELOPE_SEG_BLOCKS]
+    segs += [(np.full(33, n), False) for n in ENVELOPE_BLOCK_BITS]
+    segs += [(np.full(n_max, cap_bits), True)] * 2
+    mixed = np.resize(lengths, 64)
+    segs.append((mixed, np.arange(64) % 2 == 0))
+    bits = np.concatenate([b for b, _ in segs]).astype(np.int32)
+    ones = np.concatenate([np.broadcast_to(o, b.shape) for b, o in segs])
+    words = rng.integers(0, 1 << 32, (bits.size, BLOCK_CAP_WORDS),
+                         dtype=np.uint64)
+    bit_idx = np.arange(cap_bits).reshape(BLOCK_CAP_WORDS, 32)
+    in_string = bit_idx[None] < bits[:, None, None]
+    weight = np.uint64(1) << (31 - np.arange(32, dtype=np.uint64))
+    all_ones = (in_string * weight).sum(-1, dtype=np.uint64)
+    words = np.where(ones[:, None], words | all_ones, words)
+    count = np.array([b.size for b, _ in segs], np.int32)
+    start = (np.cumsum(count) - count).astype(np.int32)
+    S = count.size
+    rst = (0xD0 + np.arange(S) % 8).astype(np.int32)
+    has_rst = (np.arange(S) < S - 1).astype(np.int32)
+    return (words.astype(np.uint32).view(np.int32), bits, start, count, rst,
+            has_rst, segment_out_capacity(n_max))
+
 
 def merge_stuff(words: torch.Tensor, bits: torch.Tensor, seg_start: torch.Tensor,
                 seg_count: torch.Tensor, rst: torch.Tensor,

@@ -26,6 +26,10 @@ import torch
 
 #: the JAX scripts' frame
 HEIGHT, WIDTH = 4320, 7680
+#: ``mean_ms(..., hold=True)``: cycles the card spins
+#: (``torch.cuda._sleep``) before the timed runs, per run (about 0.2 ms
+#: at the H100's 1.98 GHz)
+HOLD_CYCLES_PER_RUN = 400_000
 
 
 def bench_frame(H: int, W: int, seed: int = 7) -> np.ndarray:
@@ -70,9 +74,17 @@ def device(name: str) -> torch.device:
     return torch.device(name)
 
 
-def mean_ms(fn, dev: torch.device, reps: int) -> tuple[float, str]:
+def mean_ms(fn, dev: torch.device, reps: int,
+            hold: bool = False) -> tuple[float, str]:
     """(mean ms of ``fn()`` over ``reps`` runs after one warm-up, the
-    clock): CUDA events on a card, the host clock on the CPU."""
+    clock): CUDA events on a card, the host clock on the CPU.
+
+    Without ``hold`` the events also take in the host time of the first
+    run's launch (a wrapper's checks and allocation), spread over the
+    runs. With ``hold`` the card first spins ``HOLD_CYCLES_PER_RUN`` cycles
+    a run, so that every run is queued before the first starts and the
+    events time the card alone; that holds only where the host queues one
+    run in fewer cycles and ``fn`` does not sync."""
     fn()
     if dev.type != "cuda":
         t0 = time.perf_counter()
@@ -82,6 +94,8 @@ def mean_ms(fn, dev: torch.device, reps: int) -> tuple[float, str]:
     torch.cuda.synchronize(dev)
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    if hold:
+        torch.cuda._sleep(HOLD_CYCLES_PER_RUN * reps)
     start.record()
     for _ in range(reps):
         fn()

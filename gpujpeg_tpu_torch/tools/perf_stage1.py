@@ -11,7 +11,8 @@ The stages:
 
 * ``copy``: ``copy_bytes`` (``csrc/copy_bytes.cu``, the counterpart of
   the script's "null" kernel) on the script's ``(N/2, 128)`` u8 array,
-  beside ``Tensor.clone()`` of it, with the achieved rate;
+  beside ``Tensor.clone()`` of it (timed in turns; on a card also with
+  the runs held, ``mean_ms(hold=True)``), with the achieved rate;
 * ``stage1``: E12 ``dct_huffman_blocks`` with ``cap_words = W`` on the
   script's pair-row inputs (``from_pair_rows``), the counterpart of K12;
 * ``merge``: E2 then E3 on the script's random coefficients in scan
@@ -25,6 +26,7 @@ configuration.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import numpy as np
@@ -42,8 +44,8 @@ from . import HEIGHT, WIDTH, device, mean_ms, parse_args, report
 
 STAGES = ("copy", "stage1", "merge")
 QUALITY, RESTART_INTERVAL = 75, 32
-#: copy_bytes: threads per CTA and its CTA cap (``csrc/copy_bytes.cu``)
-COPY_THREADS, COPY_MAX_CTAS = 256, 132 * 8
+#: copy_bytes: threads per CTA and bytes per CTA (``csrc/copy_bytes.cu``)
+COPY_THREADS, COPY_CHUNK = 256, 8192
 
 
 # ---------------------------------------------------------------------------
@@ -79,9 +81,20 @@ def copy_bytes_plain(x: torch.Tensor) -> torch.Tensor:
 
 
 def copy_grid(n_bytes: int) -> tuple[int, int]:
-    """(CTAs, threads) of one ``copy_bytes`` launch."""
-    ctas = -(-(n_bytes // 16) // COPY_THREADS)
-    return max(1, min(ctas, COPY_MAX_CTAS)), COPY_THREADS
+    """(CTAs, threads) of one ``copy_bytes`` launch: a CTA a chunk, none
+    for 0 bytes. On the card :func:`run` holds it to
+    :func:`copy_launch`."""
+    return -(-n_bytes // COPY_CHUNK), COPY_THREADS
+
+
+def copy_launch(n_bytes: int) -> tuple[int, int]:
+    """(CTAs, threads) that ``gj_copy_bytes`` launches for ``n_bytes``,
+    from the built kernel library (``gj_copy_bytes_grid``)."""
+    ctas, threads = ctypes.c_longlong(), ctypes.c_int()
+    err = _build.load_kernels().gj_copy_bytes_grid(
+        n_bytes, ctypes.byref(ctas), ctypes.byref(threads))
+    _build.check_launch("gj_copy_bytes_grid", err)
+    return ctas.value, threads.value
 
 
 # ---------------------------------------------------------------------------
@@ -279,16 +292,28 @@ def run(inp: Stage1Inputs, stages, dev, reps: int = 20) -> list[dict]:
     if "copy" in stages:
         x = torch.as_tensor(inp.copy_src, device=dev)
         n = x.numel()
-        ms, clock = mean_ms(lambda: copy_bytes(x), dev, reps)
-        clone_ms, _ = mean_ms(lambda: x.clone(), dev, reps)
+        r = {"stage": "copy", "kernel": "copy_bytes"}
+        # in turns (clone, copy, copy, clone), so that neither gains from
+        # its place after the input's upload; on a card also with the runs
+        # held (mean_ms), which leaves out the first launch's host time
+        for key, hold in ((("", False), ("_held", True))
+                          if dev.type == "cuda" else (("", False),)):
+            clone_a, _ = mean_ms(lambda: x.clone(), dev, reps, hold)
+            ms_a, r["clock"] = mean_ms(lambda: copy_bytes(x), dev, reps, hold)
+            ms_b, _ = mean_ms(lambda: copy_bytes(x), dev, reps, hold)
+            clone_b, _ = mean_ms(lambda: x.clone(), dev, reps, hold)
+            r["ms" + key] = (ms_a + ms_b) / 2
+            r["clone_ms" + key] = (clone_a + clone_b) / 2
         if not torch.equal(copy_bytes(x), x):
             raise RuntimeError("copy_bytes did not copy its input")
         ctas, threads = copy_grid(n)
-        rows.append({"stage": "copy", "kernel": "copy_bytes", "ms": ms,
-                     "clock": clock, "bytes": n, "clone_ms": clone_ms,
-                     "launch": f"{ctas}x{threads}"})
+        if dev.type == "cuda" and copy_launch(n) != (ctas, threads):
+            raise RuntimeError(f"copy_grid({n}) = {(ctas, threads)}, but "
+                               f"gj_copy_bytes launches {copy_launch(n)}")
+        r.update(bytes=n, launch=f"{ctas}x{threads}")
         if dev.type == "cuda":
-            rows[-1]["TB_per_s"] = 2 * n / (ms * 1e9)
+            r["TB_per_s"] = 2 * n / (r["ms"] * 1e9)
+        rows.append(r)
     if "stage1" in stages:
         W = inp.geo.words_per_block
         args = e12_args(inp, W)

@@ -475,7 +475,10 @@ def test_copy_bytes_plain_and_wrapper_checks():
         perf_stage1.copy_bytes(x.t())
     with pytest.raises(ValueError, match="unsupported device"):
         perf_stage1.copy_bytes(torch.empty(8, device="meta"))
-    assert perf_stage1.copy_grid(99532800) == (132 * 8, 256)
+    assert perf_stage1.copy_grid(99532800) == (12150, 256)
+    assert perf_stage1.copy_grid(8192) == (1, 256)
+    assert perf_stage1.copy_grid(8193) == (2, 256)
+    assert perf_stage1.copy_grid(0) == (0, 256)
     with pytest.raises(ValueError, match="stop"):
         entropy.dct_huffman_blocks(*(torch.zeros(0),) * 10, 4, "windows")
 
