@@ -45,7 +45,7 @@ SIGNATURES = {
     "gj_idct_rgb": [_P, _I, _I, _P, _I, _P, _P, _I, _P, _P],
     "gj_preprocess_planes": [_P, _I, _I, _I, _I, _P, _I, _P, _P, _P, _I,
                              _P],
-    "gj_fdct_quant_planes": [_P, _P, _I, _P, _I, _P, _P, _P, _P, _P],
+    "gj_fdct_quant_planes": [_P, _P, _I, _P, _I, _P, _P, _P, _P],
     "gj_idct_planes": [_P, _I, _P, _I, _P, _P, _I, _P, _P, _P],
     "gj_postprocess_planes": [_P, _I, _I, _I, _P, _I, _P, _P, _P, _I, _P],
     "gj_dct_huffman_blocks": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,

@@ -36,8 +36,9 @@
 //     it reads their natural positions and biases once a strip.
 // The colour constants, divisors, biases and zig-zag table sit in shared
 // memory, read as broadcasts or once a strip.
-// The 8x8 factor `kD8` and the zig-zag table come from dct8.cuh (shared
-// with D2's inverse).
+// The 8x8 factor `kD8`, the zig-zag table and the two passes
+// (`fdct8_row`, `fdct8_col`) come from dct8.cuh, shared with E1p and with
+// D2's and D2p's inverse.
 //
 // Numerics: the DCT runs on the raw pixels (no level shift) as a row pass
 // and a column pass of 8 terms each, each sum in k order with explicit
@@ -223,14 +224,7 @@ fdct_quant_kernel(const uint8_t* __restrict__ rgb, int H, int W, int vec,
             x[k] = (float)min(max(v, 0), 255);
           }
         }
-        float* t = &tile[(comp * kTB + b) * kTile + r * 8];
-#pragma unroll
-        for (int u = 0; u < 8; ++u) {
-          float acc = 0.f;
-#pragma unroll
-          for (int k = 0; k < 8; ++k) acc = fmaf(x[k], kD8[u * 8 + k], acc);
-          t[u] = acc;
-        }
+        fdct8_row(x, &tile[(comp * kTB + b) * kTile + r * 8]);
       }
     }
     __syncthreads();
@@ -238,19 +232,8 @@ fdct_quant_kernel(const uint8_t* __restrict__ rgb, int H, int W, int vec,
     // column pass: column u = r of each component's block b, in place
     if (b < n) {
 #pragma unroll
-      for (int comp = 0; comp < 3; ++comp) {
-        float* t = &tile[(comp * kTB + b) * kTile + r];
-        float col[8];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) col[j] = t[j * 8];
-#pragma unroll
-        for (int v = 0; v < 8; ++v) {
-          float acc = 0.f;
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc = fmaf(kD8[v * 8 + j], col[j], acc);
-          t[v * 8] = acc;
-        }
-      }
+      for (int comp = 0; comp < 3; ++comp)
+        fdct8_col(&tile[(comp * kTB + b) * kTile + r]);
     }
     __syncthreads();
 

@@ -52,9 +52,12 @@
 // per pixel the exact integer inverse (`colorspace._transform_from`): r =
 // (c - base) * 256 / 255 with C truncation toward zero, out = clamp((m.r +
 // 128) >> 8, 0, 255) with an arithmetic shift.
+// The two passes (`idct8_col`, `idct8_row_u8`) come from dct8.cuh and the
+// ring's bulk copies from bulk_ring.cuh, both shared with D2p.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bulk_ring.cuh"
 #include "dct8.cuh"
 
 namespace {
@@ -75,41 +78,19 @@ struct __align__(16) Smem {
   int xf[13];
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
 // one thread: copy strip (blk0, n) into `dst`, completing on `bar`
 __device__ __forceinline__ void copy_strip(int32_t* dst, uint64_t* bar,
                                       const int32_t* coeff, long long nblk,
                                       long long blk0, int n, int interleaved) {
-  // the buffer was read by the CTA (ordered before this by a barrier);
-  // order those generic accesses before the async proxy's writes
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               :: "r"(smem_addr(bar)), "r"(n * 768) : "memory");
+  bulk_expect(bar, n * 768);
   const int parts = interleaved ? 1 : 3;
   const uint32_t bytes = interleaved ? n * 768 : n * 256;
   for (int c = 0; c < parts; ++c) {
     const int32_t* src =
         interleaved ? coeff + blk0 * 192
                     : coeff + ((long long)c * nblk + blk0) * 64;
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-        "[%0], [%1], %2, [%3];"
-        :: "r"(smem_addr(dst + c * kTB * 64)), "l"(src), "r"(bytes),
-           "r"(smem_addr(bar))
-        : "memory");
+    bulk_copy(dst + c * kTB * 64, src, bytes, bar);
   }
-}
-
-__device__ __forceinline__ void wait(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n .reg .pred p;\n"
-      "WAIT_%=:\n"
-      " mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      " @!p bra WAIT_%=;\n}"
-      :: "r"(smem_addr(bar)), "r"(parity) : "memory");
 }
 
 __global__ void __launch_bounds__(kThreads, 2)
@@ -124,11 +105,8 @@ idct_rgb_kernel(const int32_t* __restrict__ coeff, int H, int W,
   if (tid < 3 * 64) sm.q[tid] = quant[q_of[tid >> 6] * 64 + (tid & 63)];
   if (tid < 64) sm.nat[tid] = kZigzagToNatural[tid];
   if (tid < 13) sm.xf[tid] = xf[tid];
-  if (tid < kStages) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
-                 :: "r"(smem_addr(&sm.full[tid])) : "memory");
-  }
-  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  if (tid < kStages) bulk_init(&sm.full[tid]);
+  bulk_init_fence();
   __syncthreads();
   const int k0 = (tid & 15) * 4;  // this thread's zig-zag positions
   const uchar4 nat = *reinterpret_cast<const uchar4*>(&sm.nat[k0]);
@@ -165,7 +143,7 @@ idct_rgb_kernel(const int32_t* __restrict__ coeff, int H, int W,
     const int n = strip_n(s);
     const int by = (int)(s / sx), bx0 = (int)(s % sx) * kTB;
     const int stage = (int)(i % kStages);
-    wait(&sm.full[stage], (uint32_t)((i / kStages) & 1));
+    bulk_wait(&sm.full[stage], (uint32_t)((i / kStages) & 1));
 
     // dequantise the strip into the tiles, natural order
     const int per = n * 16;  // units of one component's run
@@ -198,23 +176,8 @@ idct_rgb_kernel(const int32_t* __restrict__ coeff, int H, int W,
     // column pass: column r of each component's block b, in place
     if (b < n) {
 #pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        float* t = &sm.tile[(c * kTB + b) * kTile + r];
-        float x[8];
-#pragma unroll
-        for (int v = 0; v < 8; ++v) x[v] = t[v * 8];
-#pragma unroll
-        for (int py = 0; py < 4; ++py) {
-          float ev = 0.f, od = 0.f;
-#pragma unroll
-          for (int v = 0; v < 8; v += 2) {
-            ev = fmaf(kD8[v * 8 + py], x[v], ev);
-            od = fmaf(kD8[(v + 1) * 8 + py], x[v + 1], od);
-          }
-          t[py * 8] = __fadd_rn(ev, od);
-          t[(7 - py) * 8] = __fsub_rn(ev, od);
-        }
-      }
+      for (int c = 0; c < 3; ++c)
+        idct8_col(&sm.tile[(c * kTB + b) * kTile + r]);
     }
     __syncthreads();
 
@@ -224,26 +187,9 @@ idct_rgb_kernel(const int32_t* __restrict__ coeff, int H, int W,
       uint32_t pk[3][2];
 #pragma unroll
       for (int c = 0; c < 3; ++c) {
-        const float* t = &sm.tile[(c * kTB + b) * kTile + r * 8];
-        float row[8];
-#pragma unroll
-        for (int u = 0; u < 8; ++u) row[u] = t[u];
-        pk[c][0] = pk[c][1] = 0u;
-#pragma unroll
-        for (int px = 0; px < 4; ++px) {
-          float ev = 0.f, od = 0.f;
-#pragma unroll
-          for (int u = 0; u < 8; u += 2) {
-            ev = fmaf(row[u], kD8[u * 8 + px], ev);
-            od = fmaf(row[u + 1], kD8[(u + 1) * 8 + px], od);
-          }
-          const float lo = rintf(__fadd_rn(__fadd_rn(ev, od), 128.f));
-          const float hi = rintf(__fadd_rn(__fsub_rn(ev, od), 128.f));
-          pk[c][px >> 2] |= (uint32_t)fminf(fmaxf(lo, 0.f), 255.f)
-                            << (8 * (px & 3));
-          pk[c][(7 - px) >> 2] |= (uint32_t)fminf(fmaxf(hi, 0.f), 255.f)
-                                  << (8 * ((7 - px) & 3));
-        }
+        const uint2 v = idct8_row_u8(&sm.tile[(c * kTB + b) * kTile + r * 8]);
+        pk[c][0] = v.x;
+        pk[c][1] = v.y;
       }
       uint32_t w[6] = {0u, 0u, 0u, 0u, 0u, 0u};  // 24 RGB bytes
 #pragma unroll

@@ -23,14 +23,15 @@ value lies within twice that bound, over the divisor, of .5.
 
 **E1p**: blockify + DCT + quantisation of the component planes that E0
 (``ops/preprocess.py``) writes, for every plan. :func:`fdct_quant_planes`
-wraps ``csrc/fdct_quant_planes.cu``: the dense 64-term zig-zag DCT of
-the plain version (E1's first design), with each scan-order block
-gathered from its plane through
+wraps ``csrc/fdct_quant_planes.cu``: E1's separable form and arithmetic
+over scan-order blocks, each read from its plane through
 ``plan.block_plane_idx`` (it replaces the DCT+quant of the JAX
 reference's ``block_chunks_dct_fused``, K6, and the staged path's XLA
-blockify, gather and DCT matmul, ``jax_pipeline.py:209-243``).
-:func:`fdct_quant_planes_plain` is its plain torch version. On 4:4:4 RGB
-input, E1p on E0's planes equals E1 outside such ties.
+blockify, gather and DCT matmul, ``jax_pipeline.py:209-243``); like E1
+it reads no ``dct`` operand, which must be
+``tables.dct_zigzag_operator()``'s. :func:`fdct_quant_planes_plain` is
+its plain torch version (the dense operator, as E1's). On 4:4:4 RGB
+input, E1p on E0's planes equals E1 bit for bit.
 
 **D2**: dequantisation + IDCT + inverse colour transform + unblockify.
 :func:`idct_rgb` wraps ``csrc/idct_rgb.cu`` (it replaces the fused
@@ -52,13 +53,15 @@ bound of .5; a pixel there can differ.
 
 **D2p**: dequantisation + IDCT + unblockify into the component planes,
 for every plan. :func:`idct_planes` wraps ``csrc/idct_planes.cu``: D2's
-design and arithmetic, with each scan-order block written to its plane
-through ``plan.block_plane_idx`` (it replaces the JAX reference's plan
-tail after K4 or K5: the scan -> plane gather, ``dequant_idct_device``
-and ``blocks_to_plane``, ``jax_pipeline.py:1147-1184``). Its output is
-E0's layout, which D3 (``ops/preprocess.py:postprocess_planes``) packs.
-:func:`idct_planes_plain` is its plain torch version. On 4:4:4 input, D2p
-followed by D3 to RGB equals D2 outside such ties.
+separable form and arithmetic over scan-order blocks, each written to
+its plane through ``plan.block_plane_idx`` (it replaces the JAX
+reference's plan tail after K4 or K5: the scan -> plane gather,
+``dequant_idct_device`` and ``blocks_to_plane``,
+``jax_pipeline.py:1147-1184``). Like D2 it takes the zig-zag tables
+``quant``. Its output is E0's layout, which D3
+(``ops/preprocess.py:postprocess_planes``) packs. :func:`idct_planes_plain`
+is its plain torch version (the dense operators built from ``quant``, as
+D2's). On 4:4:4 input, D2p followed by D3 to RGB equals D2 bit for bit.
 """
 from __future__ import annotations
 
@@ -144,9 +147,10 @@ def _check_planes(planes, dct, bias, qdiv, blk, block_plane_idx):
     C = blk.shape[0] if blk.dim() == 2 else 0
     if not 1 <= C <= 4:
         raise ValueError(f"blk must hold 1..4 planes, got {tuple(blk.shape)}")
-    if planes.dim() != 1 or planes.numel() % 64:
-        raise ValueError(f"planes must be flat whole blocks, got "
-                         f"{tuple(planes.shape)}")
+    if planes.dim() != 1 or planes.numel() % 64 \
+            or planes.numel() >= 1 << 31:
+        raise ValueError(f"planes must be flat whole blocks of fewer than "
+                         f"2**31 bytes, got {tuple(planes.shape)}")
     check_operands({"planes": (planes, planes.shape, torch.uint8),
                     "dct": (dct, (64, 64), torch.float32),
                     "bias": (bias, (64,), torch.float32),
@@ -165,7 +169,9 @@ def fdct_quant_planes(planes: torch.Tensor, dct: torch.Tensor,
     zig-zag coefficients in scan order: row i is the plane block
     ``block_plane_idx[i]``, divided by the divisor row ``qdiv[c]`` of its
     plane c. ``blk`` holds per plane (byte offset, data width, first plane
-    block, blocks per row), planes in plane-block order."""
+    block, blocks per row), planes in plane-block order. ``dct`` must be
+    ``tables.dct_zigzag_operator()``'s: the kernel compiles its 8x8
+    factor in and reads no ``dct``."""
     _check_planes(planes, dct, bias, qdiv, blk, block_plane_idx)
     if planes.device.type == "cpu":
         return fdct_quant_planes_plain(planes, dct, bias, qdiv, blk,
@@ -177,8 +183,8 @@ def fdct_quant_planes(planes: torch.Tensor, dct: torch.Tensor,
     lib = _build.load_kernels()
     err = lib.gj_fdct_quant_planes(
         planes.data_ptr(), block_plane_idx.data_ptr(), NB, blk.data_ptr(),
-        blk.shape[0], qdiv.data_ptr(), dct.data_ptr(), bias.data_ptr(),
-        out.data_ptr(), torch.cuda.current_stream(planes.device).cuda_stream)
+        blk.shape[0], qdiv.data_ptr(), bias.data_ptr(), out.data_ptr(),
+        torch.cuda.current_stream(planes.device).cuda_stream)
     _build.check_launch("gj_fdct_quant_planes", err)
     fdct_quant_planes.launches += 1
     return out
@@ -278,8 +284,7 @@ def idct_rgb_plain(coeff: torch.Tensor, quant: torch.Tensor,
     dense operators of ``quant`` (the float64 unit operator scaled by each
     table, rounded once: ``tables.idct_operator_f32``; on a CUDA tensor
     the caller keeps TF32 off)."""
-    unit = torch.from_numpy(idct_dequant_matrix(np.ones(64))).to(coeff.device)
-    wq = (unit * quant.to(torch.float64)[:, :, None]).to(torch.float32)
+    wq = dense_operators(quant)
     nblk = (H // 8) * (W // 8)
     x = coeff.to(torch.float32)
     x = x.view(nblk, 3, 64).permute(1, 0, 2) if interleaved \
@@ -293,43 +298,55 @@ def idct_rgb_plain(coeff: torch.Tensor, quant: torch.Tensor,
                          else (vals[:9], vals[9:12]))
 
 
-def _check_idct_planes(coeff, wq, q_of, blk, block_plane_idx, total):
+def dense_operators(quant: torch.Tensor) -> torch.Tensor:
+    """(n_q, 64) zig-zag quant tables -> (n_q, 64, 64) float32 IDCT
+    operators: the float64 unit operator scaled by each table, rounded
+    once (``tables.idct_operator_f32``, ``DecodeTables.wq``)."""
+    unit = torch.from_numpy(idct_dequant_matrix(np.ones(64))).to(quant.device)
+    return (unit * quant.to(torch.float64)[:, :, None]).to(torch.float32)
+
+
+def _check_idct_planes(coeff, quant, q_of, blk, block_plane_idx, total):
     C = blk.shape[0] if blk.dim() == 2 else 0
     if not 1 <= C <= 4:
         raise ValueError(f"blk must hold 1..4 planes, got {tuple(blk.shape)}")
-    n_q = wq.shape[0] if wq.dim() == 3 else 0
+    n_q = quant.shape[0] if quant.dim() == 2 else 0
     if not 1 <= n_q <= 4:
-        raise ValueError(f"wq must hold 1..4 operators, got {tuple(wq.shape)}")
+        raise ValueError(f"quant must hold 1..4 tables, got "
+                         f"{tuple(quant.shape)}")
     if not 0 < total < 1 << 31 or total % 64:
         raise ValueError(f"planes of {total} bytes are out of range")
     check_operands({"coeff": (coeff, (total // 64, 64), torch.int32),
-                    "wq": (wq, (n_q, 64, 64), torch.float32),
+                    "quant": (quant, (n_q, 64), torch.float32),
                     "q_of": (q_of, (C,), torch.int32),
                     "blk": (blk, (C, 4), torch.int32),
                     "block_plane_idx": (block_plane_idx, (total // 64,),
                                         torch.int32)}, coeff.device)
 
 
-def idct_planes(coeff: torch.Tensor, wq: torch.Tensor, q_of: torch.Tensor,
-                blk: torch.Tensor, block_plane_idx: torch.Tensor,
-                total: int) -> torch.Tensor:
+def idct_planes(coeff: torch.Tensor, quant: torch.Tensor,
+                q_of: torch.Tensor, blk: torch.Tensor,
+                block_plane_idx: torch.Tensor, total: int) -> torch.Tensor:
     """(NB, 64) int32 zig-zag coefficients in scan order (D1's output) ->
     (total,) uint8 MCU-padded component planes, concatenated in component
     order, each (data_height, data_width) row-major (E0's layout). Row i
-    is the plane block ``block_plane_idx[i]`` and takes the operator
-    ``wq[q_of[c]]`` of its plane c. ``blk`` holds per plane (byte offset,
-    data width, first plane block, blocks per row), planes in plane-block
-    order (``preprocess.block_geometry``)."""
-    _check_idct_planes(coeff, wq, q_of, blk, block_plane_idx, total)
+    is the plane block ``block_plane_idx[i]``, dequantised by the zig-zag
+    table ``quant[q_of[c]]`` of its plane c. ``blk`` holds per plane (byte
+    offset, data width, first plane block, blocks per row), planes in
+    plane-block order (``preprocess.block_geometry``). On the card
+    ``coeff`` must start on a 16-byte boundary."""
+    _check_idct_planes(coeff, quant, q_of, blk, block_plane_idx, total)
     if coeff.device.type == "cpu":
-        return idct_planes_plain(coeff, wq, q_of, blk, block_plane_idx,
+        return idct_planes_plain(coeff, quant, q_of, blk, block_plane_idx,
                                  total)
     if coeff.device.type != "cuda":
         raise ValueError(f"unsupported device {coeff.device}")
+    if coeff.data_ptr() % 16:
+        raise ValueError("coeff must start on a 16-byte boundary")
     out = torch.empty((total,), dtype=torch.uint8, device=coeff.device)
     lib = _build.load_kernels()
     err = lib.gj_idct_planes(
-        coeff.data_ptr(), coeff.shape[0], wq.data_ptr(), wq.shape[0],
+        coeff.data_ptr(), coeff.shape[0], quant.data_ptr(), quant.shape[0],
         q_of.data_ptr(), blk.data_ptr(), blk.shape[0],
         block_plane_idx.data_ptr(), out.data_ptr(),
         torch.cuda.current_stream(coeff.device).cuda_stream)
@@ -341,14 +358,16 @@ def idct_planes(coeff: torch.Tensor, wq: torch.Tensor, q_of: torch.Tensor,
 idct_planes.launches = 0
 
 
-def idct_planes_plain(coeff: torch.Tensor, wq: torch.Tensor,
+def idct_planes_plain(coeff: torch.Tensor, quant: torch.Tensor,
                       q_of: torch.Tensor, blk: torch.Tensor,
                       block_plane_idx: torch.Tensor,
                       total: int) -> torch.Tensor:
     """Plain torch version of :func:`idct_planes`: a float32 matmul per
-    plane on its scan-order rows (on a CUDA tensor the caller keeps TF32
+    plane on its scan-order rows by the dense operators of ``quant``
+    (:func:`dense_operators`; on a CUDA tensor the caller keeps TF32
     off), round half to even, clamp, then the scatter to plane order and
     the un-blockify."""
+    wq = dense_operators(quant)
     rows = blk.tolist()
     idx = block_plane_idx.to(torch.int64)
     first = torch.tensor([r[2] for r in rows], device=coeff.device)

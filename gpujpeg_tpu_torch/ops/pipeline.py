@@ -350,8 +350,8 @@ class _DecContext:
             _mark(clock)
             return raw
         b = self.blocks
-        planes = idct_planes(coeff, t.wq, t.q_of, b.blk, b.block_plane_idx,
-                             b.total)
+        planes = idct_planes(coeff, t.quant, t.q_of, b.blk,
+                             b.block_plane_idx, b.total)
         _mark(clock)
         return postprocess_planes(planes, self.out)
 

@@ -359,8 +359,8 @@ def test_formerly_unsupported_plans_decode(case):
     coeff = _d1(ctx, rows)
     b = pre.block_geometry(plan, CPU)
     t = ctx.tables
-    planes = dct.idct_planes(coeff, t.wq, t.q_of, b.blk, b.block_plane_idx,
-                             b.total).numpy()
+    planes = dct.idct_planes(coeff, t.quant, t.q_of, b.blk,
+                             b.block_plane_idx, b.total).numpy()
     gold_planes = _golden_planes(info, plan, coeff)
     _assert_plane_ties(planes, gold_planes, coeff, plan, info)
     np.testing.assert_array_equal(raw, pre.postprocess_planes(

@@ -83,7 +83,7 @@ def _planes(ctx, plan, coeff):
     """Plain D2p of scan-order coefficients: the flat planes."""
     t = ctx.tables
     b = pre.block_geometry(plan, CPU)
-    return dct.idct_planes(coeff, t.wq, t.q_of, b.blk, b.block_plane_idx,
+    return dct.idct_planes(coeff, t.quant, t.q_of, b.blk, b.block_plane_idx,
                            b.total)
 
 
@@ -351,17 +351,17 @@ def test_plan_tail_wrappers_check_operands():
     info, plan, ctx, rows = _port_parts(_stream("420i"))
     coeff = ctx.coefficients(rows)
     t, b, g = ctx.tables, ctx.blocks, ctx.out
-    planes = dct.idct_planes(coeff, t.wq, t.q_of, b.blk, b.block_plane_idx,
-                             b.total)
+    planes = dct.idct_planes(coeff, t.quant, t.q_of, b.blk,
+                             b.block_plane_idx, b.total)
     assert pre.postprocess_planes(planes, g).shape == (g.raw_bytes,)
     with pytest.raises(ValueError, match="device|meta"):
-        dct.idct_planes(coeff.to("meta"), t.wq, t.q_of, b.blk,
+        dct.idct_planes(coeff.to("meta"), t.quant, t.q_of, b.blk,
                         b.block_plane_idx, b.total)
     with pytest.raises(ValueError):
-        dct.idct_planes(coeff[1:], t.wq, t.q_of, b.blk, b.block_plane_idx,
-                        b.total)
-    with pytest.raises(ValueError):
-        dct.idct_planes(coeff, t.wq[:, :8], t.q_of, b.blk,
+        dct.idct_planes(coeff[1:], t.quant, t.q_of, b.blk,
+                        b.block_plane_idx, b.total)
+    with pytest.raises(ValueError, match="quant"):
+        dct.idct_planes(coeff, t.quant[:, :8], t.q_of, b.blk,
                         b.block_plane_idx, b.total)
     with pytest.raises(ValueError, match="device"):
         pre.postprocess_planes(planes.to("meta"), g)

@@ -8,7 +8,13 @@ The bound is ``chip_smoke.py``'s: a float32 evaluation lies within
 ``F32_DOT_REL * (x @ |D| + |bias|)`` of the float64 value, two of them
 within twice that of each other, so their quotients may round apart only
 where the float64 quotient lies within twice the bound (over the
-divisor) of .5."""
+divisor) of .5.
+
+E1p (``fdct_quant_planes``) runs E1's order over the scan-order blocks of
+any plan: the same rendering on ``dct.scan_order_blocks`` of E0's planes
+is held to the plain E1p and to the JAX package's staged XLA DCT on
+4:2:0 interleaved (I420 in), 4:2:2, grayscale and 4:4:4 RGB plans, and on
+4:4:4 RGB to the rendering of E1 bit for bit."""
 import numpy as np
 import pytest
 import torch
@@ -19,7 +25,7 @@ from gpujpeg_tpu.tables import dct_zigzag_operator as ref_dct_zigzag_operator
 from gpujpeg_tpu.tables import quant_table_zz as ref_quant_table_zz
 from gpujpeg_tpu_torch.ops import dct
 from gpujpeg_tpu_torch.tables import dct8_matrix
-from gpujpeg_tpu_torch.types import ComponentType
+from gpujpeg_tpu_torch.types import ComponentType, ColorSpace, PixelFormat
 
 F32_DOT_REL = 2.0 ** -17
 QUALITIES = (1, 50, 75, 100)
@@ -141,3 +147,134 @@ def test_fdct_quant_on_the_cpu_is_plain_and_checks_operands():
     with pytest.raises(ValueError, match="device"):
         dct.fdct_quant(*(a.to("meta") if isinstance(a, torch.Tensor) else a
                          for a in e1))
+
+
+# ---------------------------------------------------------------------------
+# E1p: the same order over the scan-order blocks of any plan
+# ---------------------------------------------------------------------------
+
+#: name -> (input pixel format, colour space, sampling, interleaved)
+PLANS = {
+    "420i-i420": (PixelFormat.PF_420_U8_P0P1P2, ColorSpace.YCBCR_BT709, 420,
+                  True),
+    "422": (PixelFormat.PF_422_U8_P0P1P2, ColorSpace.YCBCR_BT601, 422,
+            False),
+    "gray": (PixelFormat.U8, ColorSpace.YCBCR_BT601_256LVLS, 444, False),
+    "444-rgb": (PixelFormat.PF_444_U8_P012, ColorSpace.RGB, 444, False),
+}
+SIZES = ((17, 13), (200, 136))
+
+
+def _plan_parts(name, w, h, interleaved=None, q=75, ri=1):
+    """(raw frame, encode context on the CPU, E0's plain planes) of one
+    PLANS entry at ``w`` x ``h``."""
+    from test_torch_encode_general import both, make_raw
+    import gpujpeg_tpu_torch as port
+    from gpujpeg_tpu_torch.ops.pipeline import _EncContext
+    from gpujpeg_tpu_torch.ops.preprocess import (
+        preprocess_planes_plain, upload_raw)
+    from gpujpeg_tpu_torch.plan import make_plan
+    pf, cs, sub, inter = PLANS[name]
+    inter = inter if interleaved is None else interleaved
+    raw = make_raw(pf, cs, w, h, seed=w + h)
+    params, image = both(port, pf, cs, w, h, q, ri, sub, inter)
+    ctx = _EncContext(make_plan(params, image),
+                      *port.Encoder(backend="golden")._tables(params),
+                      torch.device("cpu"))
+    planes = preprocess_planes_plain(upload_raw(raw, image, "cpu"),
+                                     ctx.planes)
+    return raw, ctx, planes
+
+
+def _render_e1p(ctx, planes):
+    """The kernel's order on the scan-order blocks of ``planes``: (NB, 64)
+    int32 quotients and the (NB, 64) uint8 blocks, (NB, 64) divisors."""
+    g = ctx.planes
+    blocks, comp = dct.scan_order_blocks(planes, g.blk, g.block_plane_idx)
+    y = separable_f32(blocks, torch.as_tensor(
+        ref_dct8_matrix().astype(np.float32)), ctx.tables.bias)
+    qdiv = ctx.qdiv[comp]
+    return torch.round(y / qdiv).to(torch.int32), blocks, qdiv
+
+
+def _assert_quotient_ties(a, b, blocks, qdiv):
+    """Two float32 evaluations' quotients may differ only by 1, and only
+    where the float64 quotient lies within twice the bound of .5."""
+    a, b = np.asarray(a, np.int64), np.asarray(b, np.int64)
+    d = np.abs(a - b)
+    assert d.max(initial=0) <= 1
+    D64, bias64 = ref_dct_zigzag_operator()
+    x = np.asarray(blocks, np.float64)
+    q = np.asarray(qdiv, np.float64)
+    yq = (x @ D64 - bias64) / q
+    eps = F32_DOT_REL * (x @ np.abs(D64) + np.abs(bias64)) / q
+    far = np.abs(np.abs(yq - np.floor(yq)) - 0.5)
+    assert (far[d != 0] <= 2 * eps[d != 0]).all()
+
+
+def _jax_coefficients(name, w, h, raw, interleaved, q=75, ri=1):
+    """The JAX package's staged XLA preprocess + DCT of the same plan, in
+    the port's scan order (as tests/test_torch_encode_general.py runs
+    it). Restart interval 1 gives its staged rows no padding rows, which
+    its packed form cannot take."""
+    import jax.numpy as jnp
+    import gpujpeg_tpu as ref
+    from test_torch_encode_general import both
+    from gpujpeg_tpu.ops import jax_pipeline as ref_jp
+    from gpujpeg_tpu.plan import make_plan as ref_make_plan
+    pf, cs, sub, _ = PLANS[name]
+    rparams, rimage = both(ref, pf, cs, w, h, q, ri, sub, interleaved)
+    rplan = ref_make_plan(rparams, rimage)
+    enc = ref.Encoder(backend="jax")
+    rctx = ref_jp._enc_context(rplan, *enc._tables(rparams))
+    s_pre, s_dct, _ = rctx._stage_fns
+    rows = np.asarray(s_dct(s_pre(jnp.asarray(raw)), *rctx._stage_args[0]))
+    real = rctx.geo.coeff_idx < rplan.n_blocks
+    expect = np.zeros((rplan.n_blocks, 64), np.int64)
+    expect[rctx.geo.coeff_idx[real]] = rows[real]
+    return expect
+
+
+@pytest.mark.parametrize("w,h", SIZES)
+@pytest.mark.parametrize("name", list(PLANS))
+def test_e1p_order_on_scan_order_blocks(name, w, h):
+    """E1p's order over the plan's scan-order blocks against the plain
+    E1p (the dense float32 operator) and against the JAX package's
+    coefficients, by the float32 tie rule."""
+    raw, ctx, planes = _plan_parts(name, w, h)
+    got, blocks, qdiv = _render_e1p(ctx, planes)
+    assert got.shape == (ctx.plan.n_blocks, 64)
+    g = ctx.planes
+    plain = dct.fdct_quant_planes_plain(planes, ctx.tables.dct,
+                                        ctx.tables.bias, ctx.qdiv, g.blk,
+                                        g.block_plane_idx)
+    _assert_quotient_ties(got, plain, blocks, qdiv)
+    _assert_quotient_ties(got, _jax_coefficients(
+        name, w, h, raw, ctx.interleaved), blocks, qdiv)
+
+
+@pytest.mark.parametrize("interleaved", (False, True))
+def test_e1p_order_on_e0_planes_equals_e1(interleaved):
+    """On 4:4:4 RGB, E1p's order on E0's planes is E1's order on E1's
+    own colour transform and blocks, bit for bit: the kernels share the
+    passes and the arithmetic, so they must agree."""
+    from gpujpeg_tpu_torch.ops.rgbpack import rgb_to_planes
+    w, h = SIZES[1]
+    raw, ctx, planes = _plan_parts("444-rgb", w, h, interleaved)
+    assert ctx.rgb_route
+    vals = ctx.xf.tolist()
+    rgb = torch.from_numpy(raw.reshape(h, w, 3))
+    p3 = rgb_to_planes(rgb, (None, None) if vals[12]
+                       else (vals[:9], vals[9:12]))
+    blocks = (p3.reshape(3, h // 8, 8, w // 8, 8).permute(0, 1, 3, 2, 4)
+              .reshape(3, -1, 64))
+    comp = torch.arange(3)[:, None].expand(3, blocks.shape[1])
+    if interleaved:
+        blocks, comp = blocks.permute(1, 0, 2), comp.T
+    blocks, comp = blocks.reshape(-1, 64), comp.reshape(-1)
+    y = separable_f32(blocks, torch.as_tensor(
+        ref_dct8_matrix().astype(np.float32)), ctx.tables.bias)
+    e1 = torch.round(y / ctx.qdiv[comp]).to(torch.int32)
+    e1p, scan_blocks, _ = _render_e1p(ctx, planes)
+    assert torch.equal(scan_blocks, blocks)
+    assert torch.equal(e1p, e1)
