@@ -53,7 +53,12 @@ the first failure:
    4 (777,600 blocks in 32,400 segments) and (c) RGB in, 4:2:0
    non-interleaved, Q75, interval 32; E2 and E3 bit-exact on (a)'s
    coefficients; E1p on E0's planes of phase 3's frame equal to E1 bit
-   for bit; kernel and plain times on (a);
+   for bit; kernel and plain times on (a), E0's time and bound on (c);
+   the sweep: E0 bit-exact against its plain version for every input
+   pixel format (1, 3 and 4 components, every step of the colour
+   transform) at 8K 4:2:0 interleaved and at 1923x1081 (1924 for UYVY)
+   4:2:2 non-interleaved, on bytes from ``np.random.default_rng``, each
+   with its time and bound;
 8. ``Encoder.encode`` end to end at 8K on (a), (c) and (d) RGB 4:4:4
    Q100 interval 32: each kernel of the route launched once per encode,
    each stream equal to the golden encoder's in every segment without a
@@ -73,7 +78,12 @@ the first failure:
    IDCT within 1 eps of .5, D3 bit-exact against its plain version and
    the host ``postprocess``; D2p + D3 equal to D2 bit for bit, before
    and after the colour transform, on the main path's stream and on (e),
-   both timed to RGB; kernel and plain times;
+   both timed to RGB, D3 alone too; kernel and plain times, D3's time and
+   bound on (c); the sweep: D3 bit-exact against its plain version for
+   every output pixel format from 1-, 3- and 4-component planes at 8K
+   (4:2:0 interleaved) and at 1923x1081 (1924 for UYVY; 4:2:2
+   non-interleaved), on bytes from ``np.random.default_rng``, each with
+   its time and bound;
 11. ``Decoder.decode`` end to end at 8K: (a) to I420 BT.709, (c) to RGB,
    (e) to RGB (D2) and to planar 4:4:4 YCbCr (D2p + D3): the route's
    kernels launched once per decode, the output the host postprocess of
@@ -99,7 +109,9 @@ the first failure:
    ``COPY_EDGE_LENGTHS`` from and to every offset of
    ``COPY_EDGE_OFFSETS``, the bytes around the destination untouched;
    (v) E0 on perf_rgbpack's frame equal to its plain version, beside the
-   copy.
+   copy; (vi) perf_pixels: E0 and D3 on the 8K cells ((a), (c), S3; (a),
+   (c), (e)) checked equal to their plain versions and timed with the
+   runs held, whole and with the colour transform cut, beside the bound.
 
 The line before the last is a JSON object with every kernel's numbers
 (its time, plain time, bound and launches on its path); the last line is
@@ -948,6 +960,69 @@ def context(gj, params, image, device="cuda"):
                        torch.device(device))
 
 
+#: the every-format sweeps of phases 7 and 10: (width, height, sampling,
+#: interleaved), UYVY at the next even width
+SWEEP_SIZES = [(W8K, H8K, 420, True), (1923, 1081, 422, False)]
+#: phase 7's sweep: input pixel format -> (image colour space, JPEG colour
+#: space): every path of E0's transform (none, inverse, forward, both)
+E0_SWEEP_PAIRS = {
+    "U8": ("YCBCR_BT601_256LVLS", "YCBCR_BT601_256LVLS"),
+    "PF_444_U8_P012": ("RGB", "YCBCR_BT601_256LVLS"),
+    "PF_444_U8_P0P1P2": ("YCBCR_BT709", "YCBCR_BT601_256LVLS"),
+    "PF_422_U8_P1020": ("YCBCR_BT709", "YCBCR_BT601_256LVLS"),
+    "PF_422_U8_P0P1P2": ("YCBCR_BT601", "RGB"),
+    "PF_420_U8_P0P1P2": ("YUV", "YCBCR_BT601"),
+    "PF_444_U8_P012Z": ("RGB", "RGB"),
+    "PF_444_U8_P012A": ("RGB", "YCBCR_BT601_256LVLS"),
+}
+
+
+def sweep_size(pf_name: str, W: int) -> int:
+    return W + W % 2 if pf_name == "PF_422_U8_P1020" and W > 1 else W
+
+
+def e0_format_sweep(gj, card: str) -> None:
+    """Phase 7's sweep: E0 against its plain version, bit for bit, for
+    every input pixel format (1, 3 and 4 components) at 8K 4:2:0
+    interleaved and at 1923x1081 4:2:2 non-interleaved, on bytes from
+    ``np.random.default_rng``; with each kernel time and bound."""
+    from gpujpeg_tpu_torch.ops import preprocess as pre
+    from gpujpeg_tpu_torch.plan import make_plan
+    n = 0
+    for i, (w, h, sub, inter) in enumerate(SWEEP_SIZES):
+        for j, (pf, (cs, cs_int)) in enumerate(E0_SWEEP_PAIRS.items()):
+            image = gj.ImageParameters(
+                width=sweep_size(pf, w), height=h,
+                color_space=gj.ColorSpace[cs],
+                pixel_format=gj.PixelFormat[pf])
+            plan = make_plan(gj.Parameters(
+                restart_interval=4, interleaved=inter,
+                color_space_internal=gj.ColorSpace[cs_int])
+                .with_chroma_subsampling(sub), image)
+            g = pre.plane_geometry(plan, "cuda")
+            raw = pre.upload_raw(np.random.default_rng(100 * i + j).integers(
+                0, 256, g.raw_bytes, dtype=np.uint8), image, "cuda")
+            planes = pre.preprocess_planes(raw, g)
+            bad = int((planes != pre.preprocess_planes_plain(raw, g)).sum())
+            bnd = bound(nbytes(raw, planes))
+            ms = cuda_ms(lambda: pre.preprocess_planes(raw, g), 5)
+            layout = "interleaved" if inter else "non-interleaved"
+            print(f"phase 7 sweep: E0 {pf} {image.width}x{h} {cs} -> "
+                  f"{cs_int} {sub} {layout}, "
+                  f"{len(plan.components)} components: {bad} of "
+                  f"{planes.numel()} bytes differ from the plain version; "
+                  f"{card}: {ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms",
+                  flush=True)
+            if bad:
+                fail(f"E0 {pf} {image.width}x{h} disagrees with its plain "
+                     "version")
+            n += 1
+            del raw, planes
+    torch.cuda.empty_cache()
+    print(f"phase 7 sweep: E0 equal to its plain version in all {n} "
+          "configurations", flush=True)
+
+
 def phase_general_kernels(gj, img: np.ndarray, configs: dict,
                           card: str) -> list[dict]:
     """Phase 7: E0 and E1p against their plain versions at 8K on (a) and
@@ -981,6 +1056,13 @@ def phase_general_kernels(gj, img: np.ndarray, configs: dict,
                             "its plain version", ctx, planes, coeff,
                             coeff_p)
         if name != "a":
+            e0_bnd = bound(nbytes(raw, planes))
+            print(f"phase 7 ({name}): {card}: preprocess_planes "
+                  f"{cuda_ms(lambda: pre.preprocess_planes(*e0), 10):.4f} "
+                  f"ms, bound {e0_bnd['bound_ms']:.4f} ms "
+                  f"({e0_bnd['bound_by']})", flush=True)
+            del ctx, raw, planes, planes_p, coeff, coeff_p
+            torch.cuda.empty_cache()
             continue
         geo = ctx.geo
         e2 = (coeff, geo.dc_pred, geo.block_cls, t.ac512, t.dc64)
@@ -1011,7 +1093,7 @@ def phase_general_kernels(gj, img: np.ndarray, configs: dict,
         for kname, src, repl, kern, plain, args, errv, bnd in (
                 ("preprocess_planes", "preprocess.cu", REPLACES_E0,
                  pre.preprocess_planes, pre.preprocess_planes_plain, e0, 0,
-                 bound(nbytes(raw, g.comp, g.src, g.xf, planes))),
+                 bound(nbytes(raw, planes))),
                 ("fdct_quant_planes", "fdct_quant_planes.cu", REPLACES_E1P,
                  dct.fdct_quant_planes, dct.fdct_quant_planes_plain, e1p,
                  err, bound(nbytes(planes, t.bias, ctx.qdiv, g.blk,
@@ -1040,6 +1122,8 @@ def phase_general_kernels(gj, img: np.ndarray, configs: dict,
                   f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']})", flush=True)
         del ctx, raw, planes, planes_p, coeff, coeff_p, words, bits, out
         torch.cuda.empty_cache()
+
+    e0_format_sweep(gj, card)
 
     # E1p on E0's planes of phase 3's 4:4:4 frame equals E1 bit for bit
     # (one separable form, one arithmetic)
@@ -1418,9 +1502,15 @@ def phase_general_decode_kernels(gj, streams: dict, main_data: bytes,
                            DCT_BLOCK_FLOPS * plan.n_blocks)),
                     ("postprocess_planes", "postprocess.cu", REPLACES_D3,
                      pre.postprocess_planes, pre.postprocess_planes_plain,
-                     d3, 0, bound(nbytes(planes, g.comp, g.dst, g.xf, raw)))]
+                     d3, 0, bound(nbytes(planes, raw)))]
         else:
             kern = []
+            d3_bnd = bound(nbytes(planes, raw))
+            print(f"phase 10 ({name}): {card}: postprocess_planes to "
+                  f"{gj.PixelFormat(out_image.pixel_format).name} "
+                  f"{cuda_ms(lambda: pre.postprocess_planes(*d3), 10):.4f} "
+                  f"ms, bound {d3_bnd['bound_ms']:.4f} ms "
+                  f"({d3_bnd['bound_by']})", flush=True)
         if name in ("a", "e"):
             kern.insert(0, (f"huffman_decode[{regime} regime ({name})]",
                             "huffman_decode.cu",
@@ -1471,15 +1561,96 @@ def phase_general_decode_kernels(gj, streams: dict, main_data: bytes,
         n_rgb = int((ctx.pixels(coeff) != tail(og)).sum())
         d2_ms = cuda_ms(lambda: ctx.pixels(coeff), 10)
         tail_ms = cuda_ms(lambda: tail(og), 10)
+        planes = dct.idct_planes(coeff, t.quant, t.q_of, b.blk,
+                                 b.block_plane_idx, b.total)
+        d3_ms = cuda_ms(lambda: pre.postprocess_planes(planes, og), 10)
+        d3_bnd = bound(planes.numel() + og.raw_bytes)
         print(f"phase 10: {name}: D2p + D3 against D2: {n_bad} of "
               f"{by_d2.numel()} values differ before the colour transform, "
               f"{n_rgb} RGB bytes after it; {card}: to RGB D2 {d2_ms:.4f} "
-              f"ms, D2p + D3 {tail_ms:.4f} ms", flush=True)
+              f"ms, D2p + D3 {tail_ms:.4f} ms (D3 {d3_ms:.4f} ms, bound "
+              f"{d3_bnd['bound_ms']:.4f} ms)", flush=True)
+        del planes
         if n_bad or n_rgb:
             fail(f"{name}: D2p + D3 differs from D2")
         del ctx, rows, coeff, by_d2
         torch.cuda.empty_cache()
+    d3_format_sweep(gj, card)
     return rows_out, gold
+
+
+#: phase 10's sweep: output pixel format -> output colour space (the
+#: streams are YCbCr BT.601 256 levels): every path of D3's transform
+D3_SWEEP_SPACES = {
+    "U8": "YCBCR_BT601_256LVLS",
+    "PF_444_U8_P012": "RGB",
+    "PF_444_U8_P0P1P2": "YCBCR_BT709",
+    "PF_422_U8_P1020": "YCBCR_BT709",
+    "PF_422_U8_P0P1P2": "YCBCR_BT601_256LVLS",
+    "PF_420_U8_P0P1P2": "YCBCR_BT709",
+    "PF_444_U8_P012Z": "RGB",
+    "PF_444_U8_P012A": "RGB",
+}
+
+
+def d3_format_sweep(gj, card: str) -> None:
+    """Phase 10's sweep: D3 against its plain version, bit for bit, for
+    every output pixel format from streams of 1, 3 and 4 components (gray
+    4:4:4, and the sampling of ``SWEEP_SIZES`` for 3 and 4) at 8K and at
+    1923x1081 (1924x1081 for UYVY), on planes from
+    ``np.random.default_rng``; with each kernel time and bound. UYVY and
+    planar output of one component raise, as ``postprocess`` does, and are
+    left out."""
+    from gpujpeg_tpu_torch.ops import preprocess as pre
+    from gpujpeg_tpu_torch.plan import make_plan
+    n = 0
+    for i, (w0, h, sub, inter) in enumerate(SWEEP_SIZES):
+        for k, in_pf in enumerate(("U8", "PF_444_U8_P012",
+                                   "PF_444_U8_P012A")):
+            params = gj.Parameters(restart_interval=4, interleaved=inter)
+            if in_pf != "U8":
+                params = params.with_chroma_subsampling(sub)
+            streams = {}   # width -> (plan, planes)
+            for pf, cs in D3_SWEEP_SPACES.items():
+                w = sweep_size(pf, w0)
+                if w not in streams:
+                    plan = make_plan(params, gj.ImageParameters(
+                        width=w, height=h,
+                        pixel_format=gj.PixelFormat[in_pf]))
+                    total = sum(c.data_width * c.data_height
+                                for c in plan.components)
+                    streams[w] = (plan, torch.from_numpy(
+                        np.random.default_rng(200 + 10 * i + k + w % 2)
+                        .integers(0, 256, total, dtype=np.uint8)).to("cuda"))
+                plan, planes = streams[w]
+                C = len(plan.components)
+                if C < 3 and pf in ("PF_422_U8_P1020", "PF_444_U8_P0P1P2",
+                                    "PF_422_U8_P0P1P2", "PF_420_U8_P0P1P2"):
+                    continue
+                g = pre.out_geometry(plan, gj.ImageParameters(
+                    width=w, height=h, color_space=gj.ColorSpace[cs],
+                    pixel_format=gj.PixelFormat[pf]), "cuda")
+                raw = pre.postprocess_planes(planes, g)
+                bad = int((raw != pre.postprocess_planes_plain(planes, g))
+                          .sum())
+                bnd = bound(planes.numel() + raw.numel())
+                ms = cuda_ms(lambda: pre.postprocess_planes(planes, g), 5)
+                layout = "interleaved" if inter and C > 1 else \
+                    "non-interleaved"
+                print(f"phase 10 sweep: D3 {C} components, "
+                      f"{sub if C > 1 else 444} {layout}, "
+                      f"{w}x{h} -> {pf} {cs}: {bad} of {raw.numel()} bytes "
+                      f"differ from the plain version; {card}: {ms:.4f} ms, "
+                      f"bound {bnd['bound_ms']:.4f} ms", flush=True)
+                if bad:
+                    fail(f"D3 {C} components -> {pf} {w}x{h} disagrees "
+                         "with its plain version")
+                n += 1
+                del raw
+            del streams, planes
+    torch.cuda.empty_cache()
+    print(f"phase 10 sweep: D3 equal to its plain version in all {n} "
+          "configurations", flush=True)
 
 
 def phase_general_decode(gj, img: np.ndarray, streams: dict, gold: dict,
@@ -1986,15 +2157,23 @@ def phase_stage1(gj, img: np.ndarray, card: str) -> tuple[list, dict]:
     raw = pre.upload_raw(frame.reshape(-1), plan.image, dev)
     words = perf_rgbpack.plane_words(pre.preprocess_planes(raw, g), H8K, W8K)
     p_ms = cuda_ms(lambda: pre.preprocess_planes_plain(raw, g), 2)
+    bnd = bound(nbytes(raw, words))
     print(f"phase 13 (v): E0 on perf_rgbpack's frame: {rg['pack']['words']} "
           f"words equal to the plain version's; {card}: "
-          f"{rg['pack']['ms']:.4f} ms, plain {p_ms:.4f} ms, copy_bytes of "
-          f"the same {raw.numel()} bytes {tool['copy']['ms']:.4f} ms",
-          flush=True)
+          f"{rg['pack']['ms']:.4f} ms, plain {p_ms:.4f} ms, bound "
+          f"{bnd['bound_ms']:.4f} ms, copy_bytes of the same {raw.numel()} "
+          f"bytes {tool['copy']['ms']:.4f} ms", flush=True)
     row("preprocess_planes[S3]", "preprocess.cu", REPLACES_S3,
-        rg["pack"]["ms"], p_ms, 0,
-        bound(nbytes(raw, g.comp, g.src, g.xf, words)))
+        rg["pack"]["ms"], p_ms, 0, bnd)
     del inp, ab_args, x, raw, words
+    torch.cuda.empty_cache()
+
+    # (vi) E0 and D3 on the 8K cells, whole and with the transform cut
+    from gpujpeg_tpu_torch.tools import perf_pixels
+    for r in perf_pixels.run(perf_pixels.STAGES, dev, H8K, W8K, 10):
+        print(f"phase 13 (vi): {card}: {r['stage']}: {r['kernel']} "
+              f"{r['ms']:.4f} ms (held), bound {r['bound_ms']:.4f} ms, "
+              f"{100 * r['share_of_bound']:.1f}% of it", flush=True)
     torch.cuda.empty_cache()
     print(f"phase 13: {time.perf_counter() - t0:.1f} s", flush=True)
     return rows, launches

@@ -43,11 +43,10 @@ SIGNATURES = {
     "gj_huffman_decode": [_P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I,
                           _P, _P],
     "gj_idct_rgb": [_P, _I, _I, _P, _I, _P, _P, _I, _P, _P],
-    "gj_preprocess_planes": [_P, _I, _I, _I, _I, _P, _I, _P, _P, _P, _I,
-                             _P],
+    "gj_preprocess_planes": [_P, _P, _P, _I, _P, _P],
     "gj_fdct_quant_planes": [_P, _P, _I, _P, _I, _P, _P, _P, _P],
     "gj_idct_planes": [_P, _I, _P, _I, _P, _P, _I, _P, _P, _P],
-    "gj_postprocess_planes": [_P, _I, _I, _I, _P, _I, _P, _P, _P, _I, _P],
+    "gj_postprocess_planes": [_P, _P, _P, _P],
     "gj_dct_huffman_blocks": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _P, _P, _P],
     "gj_copy_bytes": [_P, _P, _L, _P],
@@ -69,19 +68,10 @@ def _nvcc() -> str:
                        "toolkit (set NVCC or CUDA_HOME)")
 
 
-def library_path() -> str:
-    """Build the kernel library if needed; return its path."""
-    srcs = _sources()
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
-        with open(s, "rb") as f:
-            h.update(f.read())
-    out_dir = kernel_build_dir()
-    if not verify_private_dir(out_dir):
-        raise RuntimeError(f"kernel build dir {out_dir} is not private")
-    so = os.path.join(out_dir, f"gj_kernels_{h.hexdigest()[:16]}.so")
-    if os.path.exists(so):
-        return so
+def compile_library(srcs: list[str], so: str) -> None:
+    """Compile ``srcs`` with nvcc, one process each, all started
+    together, and link them into the shared library ``so``; raise with
+    nvcc's messages if a step fails."""
     tmp = f"{so}.tmp{os.getpid()}"
     nvcc = _nvcc()
     objs = [f"{tmp}.{i}.o" for i in range(len(srcs))]
@@ -106,18 +96,38 @@ def library_path() -> str:
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     os.replace(tmp, so)
+
+
+def library_path() -> str:
+    """Build the kernel library if needed; return its path."""
+    srcs = _sources()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for s in srcs + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
+        with open(s, "rb") as f:
+            h.update(f.read())
+    out_dir = kernel_build_dir()
+    if not verify_private_dir(out_dir):
+        raise RuntimeError(f"kernel build dir {out_dir} is not private")
+    so = os.path.join(out_dir, f"gj_kernels_{h.hexdigest()[:16]}.so")
+    if not os.path.exists(so):
+        compile_library(srcs, so)
     return so
+
+
+def bind(lib: ctypes.CDLL, names=tuple(SIGNATURES)) -> ctypes.CDLL:
+    """Set the argument and result types of ``lib``'s C entries ``names``
+    (all of :data:`SIGNATURES` by default)."""
+    for name in names:
+        fn = getattr(lib, name)
+        fn.argtypes = SIGNATURES[name]
+        fn.restype = ctypes.c_int
+    return lib
 
 
 @functools.lru_cache(maxsize=1)
 def load_kernels() -> ctypes.CDLL:
     """The loaded kernel library (built on first use)."""
-    lib = ctypes.CDLL(library_path())
-    for name, argtypes in SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return lib
+    return bind(ctypes.CDLL(library_path()))
 
 
 def check_launch(name: str, err: int) -> None:

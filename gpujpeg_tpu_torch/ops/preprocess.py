@@ -210,6 +210,23 @@ _PLANAR = (PixelFormat.PF_444_U8_P0P1P2, PixelFormat.PF_422_U8_P0P1P2,
 COMP_COLS = 8
 #: columns of :attr:`PlaneGeometry.src`
 SRC_COLS = 5
+#: raw rows a CTA of E0 takes, output rows a CTA of D3 takes
+#: (``kBandRows`` of both kernels)
+BAND_ROWS = 8
+
+
+def magic(d: int) -> int:
+    """The multiplier of ``pixio::div_magic`` (``csrc/pixel_io.cuh``) for
+    divisor ``d``: x / d = (2x * m) >> 32 with m = ceil(2**31 / d)."""
+    return -(-(1 << 31) // d)
+
+
+def magic_exact(d: int, x_max: int) -> bool:
+    """Whether ``div_magic`` with :func:`magic` (d) is exact for every
+    0 <= x <= x_max. (2x * m) >> 32 is floor(x / d + e) with
+    e = x * (m * d - 2**31) / (d * 2**31); it equals x // d where e < 1 / d,
+    which x_max * (m * d - 2**31) < 2**31 ensures."""
+    return x_max < 1 << 30 and x_max * (magic(d) * d - (1 << 31)) < 1 << 31
 
 
 def _planar_inputs(image: ImageParameters) -> list[tuple[int, ...]]:
@@ -306,6 +323,28 @@ class PlaneGeometry(BlockGeometry):
     src: torch.Tensor
     #: (PAIR_CONSTS,) int32 colour-pair constants (``pair_consts``)
     xf: torch.Tensor
+    #: (n_bands + 1, C) int32, n_bands = ceil(height / BAND_ROWS): the
+    #: first row of each plane that band b writes; band b's rows of plane
+    #: c are ``bands[b, c]:bands[b + 1, c]``, those that select from raw
+    #: rows [b * BAND_ROWS, (b + 1) * BAND_ROWS) (:func:`plane_bands`)
+    bands: torch.Tensor
+    #: the C entry's host words: fmt, height, width, C, ``comp``, ``src``,
+    #: ``xf`` (int32)
+    host: np.ndarray
+
+
+def plane_bands(comp, H: int) -> np.ndarray:
+    """E0's band table from ``PlaneGeometry.comp`` rows: plane row y
+    selects raw row min(y, rows_sel - 1) * ry, which lies in band
+    ``// BAND_ROWS``; padding rows go with the last selected row. Each
+    plane's rows are cut into consecutive runs, one per band, so every
+    row has exactly one band."""
+    n = -(-H // BAND_ROWS)
+    out = np.zeros((n + 1, len(comp)), np.int32)
+    for c, (_, _, dh, rows_sel, _, ry, _, _) in enumerate(comp):
+        band = np.minimum(np.arange(dh), rows_sel - 1) * ry // BAND_ROWS
+        out[:, c] = np.searchsorted(band, np.arange(n + 1), side="left")
+    return out
 
 
 def plane_geometry(plan: CoderPlan, device) -> PlaneGeometry:
@@ -327,13 +366,16 @@ def plane_geometry(plan: CoderPlan, device) -> PlaneGeometry:
                      ry, rx, c.index))
         off += c.data_width * c.data_height
     src = _planar_inputs(img) if pf in _PLANAR else [(0,) * SRC_COLS] * 3
+    xf = pair_consts(img.color_space, plan.params.color_space_internal, n_ch)
     b = block_geometry(plan, device)
+    host = np.array([int(pf), H, W, len(comp)]
+                    + [v for row in comp + list(src) for v in row]
+                    + list(xf), np.int32)
     return PlaneGeometry(
         blk=b.blk, block_plane_idx=b.block_plane_idx, total=b.total,
         fmt=int(pf), height=H, width=W, n_ch=n_ch, raw_bytes=raw_size(img),
-        comp=_i32(comp, device), src=_i32(src, device),
-        xf=_i32(pair_consts(img.color_space,
-                            plan.params.color_space_internal, n_ch), device))
+        comp=_i32(comp, device), src=_i32(src, device), xf=_i32(xf, device),
+        bands=_i32(plane_bands(comp, H), device), host=host)
 
 
 def _check_e0(raw: torch.Tensor, g: PlaneGeometry) -> None:
@@ -341,19 +383,24 @@ def _check_e0(raw: torch.Tensor, g: PlaneGeometry) -> None:
         raise ValueError(f"raw must be ({g.raw_bytes},) uint8, got "
                          f"{tuple(raw.shape)} {raw.dtype}")
     C = g.comp.shape[0]
+    n_bands = -(-g.height // BAND_ROWS)
     for name, t, shape in (("comp", g.comp, (C, COMP_COLS)),
                            ("src", g.src, (3, SRC_COLS)),
-                           ("xf", g.xf, (PAIR_CONSTS,))):
+                           ("xf", g.xf, (PAIR_CONSTS,)),
+                           ("bands", g.bands, (n_bands + 1, C))):
         if tuple(t.shape) != shape or t.dtype != torch.int32:
             raise ValueError(f"{name} must be {shape} int32, got "
                              f"{tuple(t.shape)} {t.dtype}")
-    for t in (raw, g.comp, g.src, g.xf):
+    for t in (raw, g.comp, g.src, g.xf, g.bands):
         if t.device != raw.device:
             raise ValueError("all operands must be on one device")
         if not t.is_contiguous():
             raise ValueError("operands must be contiguous")
-    if not 1 <= C <= 4 or g.total <= 0 or g.total >= 1 << 31:
-        raise ValueError(f"{C} planes of {g.total} bytes are out of range")
+    if not 1 <= C <= 4 or g.total <= 0 or max(g.total, g.raw_bytes) >= 1 << 31:
+        raise ValueError(f"{C} planes of {g.total} bytes from {g.raw_bytes} "
+                         "raw bytes are out of range")
+    if raw.device.type == "cuda" and raw.data_ptr() % 4:
+        raise ValueError("raw must be 4-byte aligned on the card")
 
 
 def preprocess_planes(raw: torch.Tensor, g: PlaneGeometry) -> torch.Tensor:
@@ -368,9 +415,8 @@ def preprocess_planes(raw: torch.Tensor, g: PlaneGeometry) -> torch.Tensor:
     out = torch.empty((g.total,), dtype=torch.uint8, device=raw.device)
     lib = _build.load_kernels()
     err = lib.gj_preprocess_planes(
-        raw.data_ptr(), g.fmt, g.height, g.width, g.n_ch,
-        g.comp.data_ptr(), g.comp.shape[0], g.src.data_ptr(),
-        g.xf.data_ptr(), out.data_ptr(), g.total,
+        raw.data_ptr(), g.host.ctypes.data, g.bands.data_ptr(),
+        g.bands.shape[0] - 1, out.data_ptr(),
         torch.cuda.current_stream(raw.device).cuda_stream)
     _build.check_launch("gj_preprocess_planes", err)
     preprocess_planes.launches += 1
@@ -447,13 +493,17 @@ class OutGeometry:
     #: (PAIR_CONSTS,) int32 colour-pair constants, stream colour space to
     #: the output's (``pair_consts``)
     xf: torch.Tensor
+    #: the C entry's host words: fmt, height, width, C, ``comp``, each
+    #: plane's :func:`magic` of ry and rx (as int32 bits), ``dst``, ``xf``
+    host: np.ndarray
 
 
 def out_geometry(plan: CoderPlan, out_image: ImageParameters,
                  device) -> OutGeometry:
     """D3's operands. Raises ValueError for what ``postprocess`` cannot
     pack either: UYVY or planar output of fewer than 3 components, UYVY
-    of odd width above 1, or sizes past 32-bit indexing."""
+    of odd width above 1, or sizes past 32-bit indexing or past
+    :func:`magic_exact` of a replication factor."""
     pf = PixelFormat(out_image.pixel_format)
     H, W = out_image.height, out_image.width
     C = len(plan.components)
@@ -472,13 +522,24 @@ def out_geometry(plan: CoderPlan, out_image: ImageParameters,
     if max(off, n, 4 * H * W) >= 1 << 31:
         raise ValueError(f"{W}x{H} output of {n} bytes from {off} bytes of "
                          "planes is out of range")
+    if not all(magic_exact(ry, H - 1) and magic_exact(rx, W - 1)
+               for *_, ry, rx in comp):
+        raise ValueError(f"{W}x{H} output replicates its planes out of "
+                         "range")
     dst = _planar_inputs(out_image) if pf in _PLANAR \
         else [(0,) * SRC_COLS] * 3
+    xf = pair_consts(plan.params.color_space_internal, out_image.color_space,
+                     C)
+    magics = np.array([magic(d) for *_, ry, rx in comp for d in (ry, rx)],
+                      np.uint32).view(np.int32)
+    host = np.concatenate([
+        np.array([int(pf), H, W, C] + [v for row in comp for v in row],
+                 np.int32), magics,
+        np.array([v for row in dst for v in row] + list(xf), np.int32)])
     return OutGeometry(
         fmt=int(pf), height=H, width=W, raw_bytes=n, total=off,
-        comp=_i32(comp, device), dst=_i32(dst, device),
-        xf=_i32(pair_consts(plan.params.color_space_internal,
-                            out_image.color_space, C), device))
+        comp=_i32(comp, device), dst=_i32(dst, device), xf=_i32(xf, device),
+        host=host)
 
 
 def _check_d3(planes: torch.Tensor, g: OutGeometry) -> None:
@@ -499,6 +560,8 @@ def _check_d3(planes: torch.Tensor, g: OutGeometry) -> None:
             raise ValueError("operands must be contiguous")
     if not 1 <= C <= 4:
         raise ValueError(f"{C} planes are out of range")
+    if planes.device.type == "cuda" and planes.data_ptr() % 8:
+        raise ValueError("planes must be 8-byte aligned on the card")
 
 
 def postprocess_planes(planes: torch.Tensor, g: OutGeometry) -> torch.Tensor:
@@ -513,9 +576,8 @@ def postprocess_planes(planes: torch.Tensor, g: OutGeometry) -> torch.Tensor:
     out = torch.empty((g.raw_bytes,), dtype=torch.uint8, device=planes.device)
     lib = _build.load_kernels()
     err = lib.gj_postprocess_planes(
-        planes.data_ptr(), g.fmt, g.height, g.width, g.comp.data_ptr(),
-        g.comp.shape[0], g.dst.data_ptr(), g.xf.data_ptr(), out.data_ptr(),
-        g.raw_bytes, torch.cuda.current_stream(planes.device).cuda_stream)
+        planes.data_ptr(), g.host.ctypes.data, out.data_ptr(),
+        torch.cuda.current_stream(planes.device).cuda_stream)
     _build.check_launch("gj_postprocess_planes", err)
     postprocess_planes.launches += 1
     return out
