@@ -47,8 +47,8 @@ SIGNATURES = {
     "gj_fdct_quant_planes": [_P, _P, _I, _P, _I, _P, _P, _P, _P],
     "gj_idct_planes": [_P, _I, _P, _I, _P, _P, _I, _P, _P, _P],
     "gj_postprocess_planes": [_P, _P, _P, _P],
-    "gj_dct_huffman_blocks": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                              _I, _I, _P, _P, _P],
+    "gj_dct_huffman_blocks": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                              _I, _P, _P, _P],
     "gj_copy_bytes": [_P, _P, _L, _P],
     "gj_copy_bytes_grid": [_L, _P, _P],
 }

@@ -1,6 +1,6 @@
 // The 8x8 DCT factor, the zig-zag order and the separable passes over a
 // padded shared tile, for E1 (fdct_quant.cu), E1p (fdct_quant_planes.cu),
-// D2 (idct_rgb.cu) and D2p (idct_planes.cu).
+// E12 (dct_huffman_blocks.cu), D2 (idct_rgb.cu) and D2p (idct_planes.cu).
 //
 // kD8 is `tables.dct8_matrix()` rounded to float32 (held equal to it by
 // tests/test_torch_e1_separable.py). It sits in the constant bank, so an
@@ -52,18 +52,21 @@ __device__ __forceinline__ void fdct8_row(const float (&x)[8], float* t) {
   }
 }
 
-// E1's forward column pass, in place on the column t[0], t[8], ..., t[56]
-// of a row-pass tile: y[v] = sum_j D[v][j] t[j], in j order from 0.
+// E1's forward column pass, in place on the column t[0], t[kPitch], ...,
+// t[7 kPitch] of a row-pass tile (rows kPitch floats apart: 8 in E1's
+// and E1p's tiles, 9 in E12's): y[v] = sum_j D[v][j] t[j], in j order
+// from 0.
+template <int kPitch = 8>
 __device__ __forceinline__ void fdct8_col(float* t) {
   float col[8];
 #pragma unroll
-  for (int j = 0; j < 8; ++j) col[j] = t[j * 8];
+  for (int j = 0; j < 8; ++j) col[j] = t[j * kPitch];
 #pragma unroll
   for (int v = 0; v < 8; ++v) {
     float acc = 0.f;
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc = fmaf(kD8[v * 8 + j], col[j], acc);
-    t[v * 8] = acc;
+    t[v * kPitch] = acc;
   }
 }
 

@@ -1,5 +1,5 @@
-// Bit-field placement and the warp scan shared by E2 (huffman_blocks.cu)
-// and E3 (merge_stuff.cu).
+// Bit-field placement and the warp scan shared by the block walk of E2
+// and E12 (block_walk.cuh) and by E3 (merge_stuff.cu).
 //
 // Strings are MSB first in big-endian-in-value 32-bit words: bit offset
 // `off` of a string is bit 31 - (off & 31) of word off >> 5. Lanes place

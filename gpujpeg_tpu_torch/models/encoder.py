@@ -16,7 +16,7 @@ import torch
 
 from ..ops import golden
 from ..ops.blocks import plane_to_blocks
-from ..ops.preprocess import preprocess
+from ..ops.preprocess import preprocess, upload_raw
 from ..params import ImageParameters, Parameters
 from ..plan import CoderPlan, make_plan
 from ..stream.writer import HeaderType, JpegWriter
@@ -86,8 +86,16 @@ class Encoder:
         return quant_zz, huff
 
     def encode(self, raw, params: Parameters, image: ImageParameters) -> bytes:
-        """Encode one frame (raw bytes or a NumPy array) to a JPEG byte
-        stream."""
+        """Encode one frame to a JPEG byte stream.
+
+        ``raw`` is bytes, a NumPy array or a tensor in the image's pixel
+        format: a ``torch.uint8`` tensor, or an ``int32`` one read as its
+        little-endian bytes (the JAX package's words form). A tensor on
+        the encoder's device is not copied (the analog of the reference's
+        device-pointer inputs, gpujpeg_encoder.c:353-395), such as
+        ``Decoder.decode_to_device``'s frame; one on another device is
+        copied there once. The host route (``restart_interval == 0``)
+        brings a tensor to the host once."""
         plan = make_plan(params, image)
         quant_zz, huff = self._tables(params)
 
@@ -98,7 +106,10 @@ class Encoder:
             from ..ops.pipeline import encode_segments_device
             result = encode_segments_device(self, raw, plan, quant_zz, huff)
         else:
-            seg_bytes = self._encode_segments_golden(raw, plan, quant_zz, huff)
+            if isinstance(raw, torch.Tensor):   # checked, to the host once
+                raw = upload_raw(raw, image, "cpu").numpy()
+            seg_bytes = self._encode_segments_golden(raw, plan, quant_zz,
+                                                     huff)
             result = self._to_scan_bodies(plan, seg_bytes)
         scan_bodies, seg_sizes_by_scan = result
 

@@ -48,7 +48,9 @@ bit against each of K6-K11 in interpret mode, on the JAX package's own
 coefficients.
 
 * **E12** :func:`dct_huffman_blocks` (``csrc/dct_huffman_blocks.cu``):
-  E1p's DCT and quantisation fused with E2's walk, so the coefficients
+  E1's separable DCT passes (``csrc/dct8.cuh``) and E1p's quantisation
+  (its quotients, bit for bit) fused with E2's warp walk
+  (``csrc/block_walk.cuh``, which E2 calls too), so the coefficients
   never reach device memory: the counterpart of K12
   ``block_chunks_dct_pallas`` (``entropy_v2.py:637``), which only the
   JAX package's stage-1 probe scripts call, and with its ``stop`` modes
@@ -62,11 +64,12 @@ import dataclasses
 
 import numpy as np
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from .. import _build
 from ..plan import CoderPlan
 from ..tables import (DEFAULT_HUFFMAN_BITS, DEFAULT_HUFFMAN_VALUES,
-                      HuffmanTable)
+                      HuffmanTable, dct_zigzag_operator)
 from ..types import ComponentType, HuffmanType
 from .huffman_encode import build_enc_geometry
 
@@ -433,27 +436,51 @@ def envelope_blocks(rng: np.random.Generator) -> np.ndarray:
 
 #: E12's stop modes, in the order of the ``stop`` template argument of
 #: ``csrc/dct_huffman_blocks.cu``; the modes of ``scripts/
-#: ablate_stage1.py`` that a thread walking one block has. ``io`` loads
-#: and stores only, ``passthru`` writes pixels, ``dctonly`` the DCT with
-#: no divisor, ``dct`` the quotients, ``dctmul`` multiplies by the divisor
-#: in place of the division, ``synth`` stops after the categories and
-#: value bits, ``lookups`` walks with symbol codes from arithmetic in
-#: place of the tables, ``full`` is E12. Each writes what the script's
-#: mode writes (the source's header says what that is).
+#: ablate_stage1.py`` that a fused DCT and walk has. ``io`` loads and
+#: stores only, ``passthru`` writes pixels, ``dctonly`` the DCT with no
+#: divisor, ``dct`` the quotients, ``dctmul`` multiplies by the divisor in
+#: place of the division, ``synth`` stops after the categories and value
+#: bits, ``lookups`` walks with symbol codes from arithmetic in place of
+#: the tables, ``full`` is E12. Each writes what the script's mode writes
+#: (the source's header says what that is).
 STOP_MODES = ("io", "passthru", "dctonly", "dct", "dctmul", "synth",
               "lookups", "full")
 #: values the script's pair-row modes write per pair row (words of both
 #: blocks at W = 4)
 PAIR_VALUES = 8
-#: E12's blocks per CTA (one walking thread each) and its CTA cap
-#: (``csrc/dct_huffman_blocks.cu``)
-E12_BLOCKS_PER_CTA, E12_MAX_CTAS = 64, 132 * 8
+#: ``io``: every block writes pixel 0 and the diff of the first block of
+#: its group of this many blocks (the script's io at a tile of 64)
+IO_GROUP_BLOCKS = 64
+#: E12's launch (``csrc/dct_huffman_blocks.cu``): strips of 32 blocks, 256
+#: threads a CTA, at most 6 CTAs an SM of the H100's 132
+E12_STRIP_BLOCKS, E12_THREADS, E12_MAX_CTAS = 32, 256, 132 * 6
 
 
 def dct_huffman_grid(n_blocks: int) -> tuple[int, int]:
     """(CTAs, threads) of one :func:`dct_huffman_blocks` launch."""
-    return (min(-(-n_blocks // E12_BLOCKS_PER_CTA), E12_MAX_CTAS),
-            E12_BLOCKS_PER_CTA)
+    return (min(-(-n_blocks // E12_STRIP_BLOCKS), E12_MAX_CTAS),
+            E12_THREADS)
+
+
+#: ``dct`` tensors already held equal to ``dct_zigzag_operator()``'s ->
+#: their version counter at the check
+_OPERATOR_CHECKED = WeakIdKeyDictionary()
+
+
+def _check_operator(dct: torch.Tensor) -> None:
+    """Raise ValueError unless ``dct`` holds ``tables.dct_zigzag_operator()``
+    in float32: E12's kernel computes that product in separable form and
+    reads no ``dct``. A tensor is compared once (one sync on the card) and
+    again only after an in-place change."""
+    if _OPERATOR_CHECKED.get(dct) == dct._version:
+        return
+    want = torch.as_tensor(dct_zigzag_operator()[0].astype(np.float32),
+                           device=dct.device)
+    if not torch.equal(dct, want):
+        raise ValueError("dct must be tables.dct_zigzag_operator() in "
+                         "float32 (E12 computes that product in separable "
+                         "form)")
+    _OPERATOR_CHECKED[dct] = dct._version
 
 
 def dct_huffman_blocks(blocks: torch.Tensor, diff: torch.Tensor,
@@ -466,18 +493,20 @@ def dct_huffman_blocks(blocks: torch.Tensor, diff: torch.Tensor,
     """(NB, 64) uint8 blocks in row-major pixel order -> (words (NB,
     cap_words) int32, bits (NB,) int32).
 
-    Per block: ``q = rint((x @ dct - bias) / qdiv[qsel])`` in float32
-    (E1p's arithmetic), then the block's bit string as E2 writes it, with
-    the DC difference ``diff`` given instead of found through a
-    predecessor, an EOB when ``q[63] == 0``, and no string for a block
-    with ``valid == 0`` (``bits`` 0). ``words`` holds the first
-    ``cap_words`` words of the string MSB first (words past
-    ``ceil(min(bits, 32 * cap_words) / 32)`` are unspecified), ``bits``
-    the full length: ``cap_words = W`` is K12's contract, truncation
-    included, and ``cap_words = BLOCK_CAP_WORDS`` is E2's layout, which
-    E3 takes. ``qsel`` values lie below ``qdiv.shape[0]``. ``stop``
-    picks one of :data:`STOP_MODES`; their launches are counted apart in
-    ``dct_huffman_blocks.launches``."""
+    Per block: ``q = rint((x @ dct - bias) / qdiv[qsel])`` in float32 by
+    E1's separable passes and E1p's arithmetic (the same quotients as
+    :func:`dct.fdct_quant_planes` on the same blocks and divisors; ``dct``
+    must be ``tables.dct_zigzag_operator()`` in float32, ValueError
+    otherwise), then the block's bit string as E2 writes it, with the DC
+    difference ``diff`` given instead of found through a predecessor, an
+    EOB when ``q[63] == 0``, and no string for a block with ``valid == 0``
+    (``bits`` 0). ``words`` holds the first ``cap_words`` words of the
+    string MSB first (words past ``ceil(min(bits, 32 * cap_words) / 32)``
+    are unspecified), ``bits`` the full length: ``cap_words = W`` is K12's
+    contract, truncation included, and ``cap_words = BLOCK_CAP_WORDS`` is
+    E2's layout, which E3 takes. ``qsel`` values lie below
+    ``qdiv.shape[0]``. ``stop`` picks one of :data:`STOP_MODES`; their
+    launches are counted apart in ``dct_huffman_blocks.launches``."""
     NB = blocks.shape[0]
     n_q = qdiv.shape[0] if qdiv.dim() == 2 else 0
     if stop not in STOP_MODES:
@@ -495,6 +524,7 @@ def dct_huffman_blocks(blocks: torch.Tensor, diff: torch.Tensor,
             "bias": (bias, (64,), torch.float32),
             "ac512": (ac512, (512,), torch.int32),
             "dc64": (dc64, (64,), torch.int32)}, blocks.device)
+    _check_operator(dct)
     args = (blocks, diff, block_cls, valid, qsel, qdiv, dct, bias, ac512,
             dc64, cap_words, stop)
     if blocks.device.type == "cpu":
@@ -507,7 +537,7 @@ def dct_huffman_blocks(blocks: torch.Tensor, diff: torch.Tensor,
     lib = _build.load_kernels()
     err = lib.gj_dct_huffman_blocks(
         blocks.data_ptr(), NB, diff.data_ptr(), block_cls.data_ptr(),
-        valid.data_ptr(), qsel.data_ptr(), qdiv.data_ptr(), dct.data_ptr(),
+        valid.data_ptr(), qsel.data_ptr(), qdiv.data_ptr(),
         bias.data_ptr(), ac512.data_ptr(), dc64.data_ptr(), cap_words,
         STOP_MODES.index(stop), words.data_ptr(), bits.data_ptr(),
         torch.cuda.current_stream(blocks.device).cuda_stream)
@@ -526,14 +556,17 @@ def dct_huffman_blocks_plain(blocks: torch.Tensor, diff: torch.Tensor,
                              ac512: torch.Tensor, dc64: torch.Tensor,
                              cap_words: int, stop: str = "full"
                              ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain torch version of :func:`dct_huffman_blocks`: a matmul,
-    ``torch.round``, then :func:`_walk_plain` (``lookups``: its window
-    form), or the stop mode's values. Words past a string are zero."""
+    """Plain torch version of :func:`dct_huffman_blocks`: the dense
+    float32 matmul (K12's definition), ``torch.round``, then
+    :func:`_walk_plain` (``lookups``: its window form), or the stop mode's
+    values. Words past a string are zero. Its values may differ from the
+    kernel's (E1's separable order) by one where the float64 value lies
+    within twice the float32 bound of a rounding edge (``ops/dct.py``)."""
     from .dct import fdct_blocks_plain, quantize_plain
     dev = blocks.device
     if stop == "io":
         g = torch.arange(blocks.shape[0], device=dev)
-        g = g - g % E12_BLOCKS_PER_CTA
+        g = g - g % IO_GROUP_BLOCKS
         px = blocks[g, 0].to(torch.int32)[:, None]
         return px.expand(-1, cap_words).contiguous(), diff[g]
     if stop == "passthru":
@@ -545,13 +578,27 @@ def dct_huffman_blocks_plain(blocks: torch.Tensor, diff: torch.Tensor,
     if stop == "dctmul":
         return _pair_rows(torch.round(y * qd).to(torch.int64), None,
                           cap_words)
-    q = quantize_plain(y, qd)
+    return e12_from_quotients(quantize_plain(y, qd), diff, block_cls, valid,
+                              ac512, dc64, cap_words, stop)
+
+
+def e12_from_quotients(q: torch.Tensor, diff: torch.Tensor,
+                       block_cls: torch.Tensor, valid: torch.Tensor,
+                       ac512: torch.Tensor, dc64: torch.Tensor,
+                       cap_words: int, stop: str = "full"
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """What :func:`dct_huffman_blocks` writes in the ``dct``, ``synth``,
+    ``lookups`` or ``full`` mode, from given (NB, 64) zig-zag quotients
+    ``q`` (the plain version's own, or the kernel's: E1p's on the same
+    blocks): given equal quotients, those modes are exact."""
     if stop == "dct":
         return _pair_rows(q.to(torch.int64), None, cap_words)
     if stop == "synth":
         v = torch.cat([diff[:, None], q[:, 1:]], dim=1).to(torch.int64)
         cat = _bit_length(v.abs())
         return _pair_rows(_value_bits(v, cat) + cat, cat, cap_words)
+    if stop not in ("lookups", "full"):
+        raise ValueError(f"no {stop!r} output from quotients")
     return _walk_plain(q, diff, block_cls, valid, ac512, dc64, cap_words,
                        window=stop == "lookups")
 

@@ -184,8 +184,9 @@ class _EncContext:
             self.xf = transform_consts_tensor(pack_consts(plan), device)
 
     def upload(self, raw) -> torch.Tensor:
-        """Raw frame (bytes or a NumPy array) -> what :meth:`run` takes:
-        (H, W, 3) uint8 on the E1 route, the flat bytes otherwise."""
+        """Raw frame (bytes, a NumPy array or a tensor) -> what
+        :meth:`run` takes: (H, W, 3) uint8 on the E1 route, the flat bytes
+        otherwise."""
         if self.rgb_route:
             return upload_rgb(raw, self.plan, self.device)
         return upload_raw(raw, self.plan.image, self.device)
@@ -243,12 +244,12 @@ def _enc_context(cache: dict, plan: CoderPlan, quant_zz: dict, huff: dict,
 
 
 def upload_rgb(raw, plan: CoderPlan, device: torch.device) -> torch.Tensor:
-    """Raw interleaved RGB (bytes or a NumPy array) -> (H, W, 3) uint8
-    tensor on ``device``."""
+    """Raw interleaved RGB (bytes, a NumPy array or a uint8 or int32
+    tensor) -> (H, W, 3) uint8 tensor on ``device``, by
+    :func:`preprocess.upload_raw` (its checks; a tensor on ``device`` is
+    not copied)."""
     H, W = plan.image.height, plan.image.width
-    a = np.frombuffer(raw, np.uint8) if isinstance(
-        raw, (bytes, bytearray, memoryview)) else np.asarray(raw, np.uint8)
-    return torch.from_numpy(np.ascontiguousarray(a.reshape(H, W, 3))).to(device)
+    return upload_raw(raw, plan.image, device).view(H, W, 3)
 
 
 def encode_segments_device(encoder, raw, plan: CoderPlan, quant_zz: dict,

@@ -254,22 +254,38 @@ def raw_size(image: ImageParameters) -> int:
 
 
 def upload_raw(raw, image: ImageParameters, device) -> torch.Tensor:
-    """A raw frame in any pixel format (bytes or a NumPy array) -> its
-    flat uint8 bytes on ``device``. Raises ValueError when the byte count
-    is not the format's (:func:`raw_size`), or for UYVY of odd width,
-    which the reference's loader cannot unpack either."""
-    a = np.frombuffer(raw, np.uint8) if isinstance(
-        raw, (bytes, bytearray, memoryview)) else np.asarray(raw, np.uint8)
-    a = a.reshape(-1)
+    """A raw frame in any pixel format -> its flat uint8 bytes on
+    ``device``. ``raw`` is bytes, a NumPy array or a tensor: a uint8
+    tensor as it is, an int32 one as its little-endian bytes (the JAX
+    package's words form; the host and the card are both little-endian).
+    A tensor already on ``device`` is not copied (a view where it is
+    contiguous); one on another device is copied there once, never
+    through NumPy. Raises ValueError for a tensor of another dtype, when
+    the byte count is not the format's (:func:`raw_size`), or for UYVY of
+    odd width, which the reference's loader cannot unpack either."""
+    if isinstance(raw, torch.Tensor):
+        if raw.dtype == torch.int32:
+            raw = raw.contiguous().view(torch.uint8)
+        elif raw.dtype != torch.uint8:
+            raise ValueError(f"a raw frame tensor must be uint8 or int32, "
+                             f"got {raw.dtype}")
+        a = raw.reshape(-1)
+    else:
+        a = np.frombuffer(raw, np.uint8) if isinstance(
+            raw, (bytes, bytearray, memoryview)) else np.asarray(raw,
+                                                                 np.uint8)
+        a = a.reshape(-1)
     n = raw_size(image)
-    if a.size != n:
-        raise ValueError(f"raw frame holds {a.size} bytes, "
+    if a.shape[0] != n:
+        raise ValueError(f"raw frame holds {a.shape[0]} bytes, "
                          f"{PixelFormat(image.pixel_format).name} "
                          f"{image.width}x{image.height} needs {n}")
     if (PixelFormat(image.pixel_format) == PixelFormat.PF_422_U8_P1020
             and image.width % 2):
         raise ValueError("PF_422_U8_P1020 needs an even width")
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    if isinstance(a, np.ndarray):
+        a = torch.from_numpy(np.ascontiguousarray(a))
+    return a.to(device)
 
 
 def _i32(a, device) -> torch.Tensor:

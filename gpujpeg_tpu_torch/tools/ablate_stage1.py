@@ -17,10 +17,11 @@ tables, ``full`` is E12. The inputs are the script's: its geometry
 from ``np.random.default_rng(0)``, padded to its tile of 768 blocks with
 invalid blocks.
 
-The script's other modes time TPU formulations that a thread walking one
-block does not have: ``scans`` (the lane prefix scan), ``windows`` (the
-shift-OR window trees), ``wmm`` (window assembly on the MXU) and
-``dctfast`` (bf16 MXU passes; the port keeps float32 without TF32).
+The script's other modes time TPU formulations with no stage of their
+own in E12: ``scans`` (the lane prefix scan of its 128-lane rows; E12's
+warp scan is part of its walk), ``windows`` (the shift-OR window
+trees), ``wmm`` (window assembly on the MXU) and ``dctfast`` (bf16 MXU
+passes; the port keeps float32 without TF32).
 """
 from __future__ import annotations
 

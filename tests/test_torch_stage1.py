@@ -297,7 +297,7 @@ def _ablate_inputs():
 def test_stop_modes_plain_match_ablate_script(monkeypatch, stop):
     """Each stop mode's plain version, on the port tool's inputs, equals
     the script's ``build(stop, ...)`` kernel run in interpret mode on the
-    same arrays (a tile of 64 blocks, the CTA's, for ``io``): words the
+    same arrays (a tile of 64 blocks, ``io``'s group, for ``io``): words the
     string fills (all words outside ``lookups``/``full``) and bits, in
     every block. The tool draws the script's arrays."""
     from jax.experimental import pallas as pl
