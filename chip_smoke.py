@@ -119,11 +119,34 @@ the first failure:
    (v) E0 on perf_rgbpack's frame equal to its plain version, beside the
    copy; (vi) perf_pixels: E0 and D3 on the 8K cells ((a), (c), S3; (a),
    (c), (e)) checked equal to their plain versions and timed with the
-   runs held, whole and with the colour transform cut, beside the bound.
+   runs held, whole and with the colour transform cut, beside the bound;
+14. the batch and command-line entry points, timed: (i) ``Encoder.warmup``
+   of a fresh encoder and its first encode timed; the peak device memory
+   (``max_memory_allocated``) of one 8K encode of the main path and of
+   (d) within ``Encoder.max_memory``, and ``max_pixels`` of the card;
+   (ii) ``Encoder.encode_batch`` of 8 frames of the main path at 8K and
+   16 of (a)'s configuration at 4K (3840x2160, interval 4), frames rolled
+   from one image: every stream equal to ``encode`` of its frame, each
+   kernel of the route launched once a frame, the batch's per-frame time
+   beside the loop of ``encode`` (host clock, median of 3); (iii)
+   ``Decoder.decode_batch`` of those streams to RGB and to I420, every
+   output equal to ``decode`` of its stream, launches once a frame, times
+   beside the loop; a mixed batch (8K, 4K, a 200x136 stream on the golden
+   route, 8K) equal to the per-frame decodes; a corrupt stream in the
+   middle raises ``JpegParseError`` and a decode after it succeeds;
+   ``output_to_device`` through the batch gives CUDA tensors; (iv)
+   ``capture_device_call``'s replay of the 8K decode equal to its output;
+   (v) ``python -m gpujpeg_tpu_torch`` in subprocesses: ``-L`` names the
+   card, ``-e`` of an 8K PPM equals ``Encoder.encode`` of its pixels,
+   ``-d`` back equals ``Decoder.decode``, a Y4M of 8 HD frames to a
+   ``%d`` pattern (through ``encode_batch``) gives the per-frame
+   encodes' files; (vi) ``examples/device_array_roundtrip.py`` and
+   ``examples/video_pipeline.py`` at their defaults on ``cuda``.
 
 The line before the last is a JSON object with every kernel's numbers
-(its time, plain time, bound and launches on its path); the last line is
-``{"ok": true, "device": {...}}``.
+(its time, plain time, bound and launches on its path), the line before
+it phase 14's batch rows; the last line is ``{"ok": true, "device":
+{...}}``.
 """
 from __future__ import annotations
 
@@ -2306,6 +2329,318 @@ def phase_stage1(gj, img: np.ndarray, card: str) -> tuple[list, dict]:
     return rows, launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the batch and command-line entry points
+# ---------------------------------------------------------------------------
+
+#: phase 14's batches: frames of the main path at 8K, of (a) at 4K
+BATCH_8K, BATCH_4K, H4K, W4K = 8, 16, 2160, 3840
+
+
+def host_ms(fn) -> float:
+    """Host-clock ms of ``fn()``, ended by a sync of the card."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def peak_bytes(fn) -> int:
+    """Device bytes allocated at the peak of ``fn()`` above those
+    allocated before it."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def count_launches(kernels, fn, n: int, what: str) -> dict:
+    """``fn()`` with the kernels' counts set to 0; fail unless each
+    launched ``n`` times; the counts."""
+    for k in kernels:
+        k.launches = 0
+    fn()
+    launches = {k.__name__: k.launches for k in kernels}
+    if any(v != n for v in launches.values()):
+        fail(f"phase 14 {what}: launches {launches}, expected {n} each")
+    return launches
+
+
+def batch_vs_loop(batch, loop, n: int) -> tuple[float, float]:
+    """Per-frame ms of ``batch()`` and of ``loop()`` over ``n`` frames,
+    median of 3 each, in turns (loop, batch)."""
+    b, lp = [], []
+    for _ in range(3):
+        lp.append(host_ms(loop) / n)
+        b.append(host_ms(batch) / n)
+    return float(np.median(b)), float(np.median(lp))
+
+
+def i420_frames(gj, img: np.ndarray, image, n: int) -> list:
+    """``n`` I420 frames of ``img`` in ``image``'s colour space, each plane
+    rolled along its rows by 16 pixels more than the last (8 in the
+    chroma planes)."""
+    H, W = image.height, image.width
+    raw = make_raw(gj, img, image)
+    y = raw[:H * W].reshape(H, W)
+    u, v = raw[H * W:].reshape(2, H // 2, W // 2)
+    return [np.concatenate([np.roll(y, 16 * k, 1).ravel(),
+                            np.roll(u, 8 * k, 1).ravel(),
+                            np.roll(v, 8 * k, 1).ravel()])
+            for k in range(n)]
+
+
+def run_cli(*args: str, timeout: int = 300) -> str:
+    """``python -m gpujpeg_tpu_torch *args`` from the checkout's root;
+    fail unless it exits 0; its standard output."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    r = subprocess.run([sys.executable, "-m", "gpujpeg_tpu_torch", *args],
+                       cwd=root, capture_output=True, text=True,
+                       timeout=timeout)
+    if r.returncode != 0:
+        fail(f"phase 14 (v): gpujpeg_tpu_torch {' '.join(args)} exited "
+             f"{r.returncode}: {r.stderr[-2000:]}")
+    return r.stdout
+
+
+def phase_batch(gj, img: np.ndarray, data: bytes, card: str) -> list:
+    """Phase 14: warm-up and memory, ``encode_batch``, ``decode_batch``,
+    the bench hook, the CLI and the examples; returns the batch rows."""
+    import tempfile
+
+    from gpujpeg_tpu_torch.ops import dct, decode, entropy, preprocess
+    from gpujpeg_tpu_torch.stream.reader import JpegParseError
+
+    t_phase = time.perf_counter()
+    params, image, _ = setup(gj, H8K, W8K)
+    raw = img.reshape(-1)
+
+    # (i) warm-up, first encode, peak memory against max_memory
+    enc = gj.Encoder(backend="torch", device="cuda")
+    warm_ms = host_ms(lambda: enc.warmup(params, image))
+    first_ms = host_ms(lambda: enc.encode(raw, params, image))
+    del enc
+    peaks = {}
+    for name, q in (("main path Q75", QUALITY), ("(d) Q100", 100)):
+        p = gj.Parameters(quality=q, restart_interval=32)
+        peaks[name] = peak_bytes(lambda: gj.Encoder(
+            backend="torch", device="cuda").encode(raw, p, image))
+    bound = gj.Encoder.max_memory(W8K * H8K)
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"phase 14 (i): {card}: Encoder.warmup of a fresh encoder "
+          f"{warm_ms:.3f} ms (kernels already loaded by phase 2), then its "
+          f"first 8K encode {first_ms:.3f} ms (host clock); peak device "
+          f"memory of one 8K encode: " + ", ".join(
+              f"{k} {v} B ({v / (W8K * H8K):.2f} B a pixel)"
+              for k, v in peaks.items())
+          + f"; Encoder.max_memory({W8K}x{H8K}) = {bound} B; "
+          f"max_pixels({total}) = {gj.Encoder.max_pixels(total)}",
+          flush=True)
+    if max(peaks.values()) > bound:
+        fail(f"phase 14 (i): a peak {peaks} passes max_memory {bound}")
+
+    # (ii) encode_batch against the loop of encode
+    enc = gj.Encoder(backend="torch", device="cuda")
+    frames8 = [np.roll(img, 16 * k, axis=1).reshape(-1)
+               for k in range(BATCH_8K)]
+    params_a, _ = plan_a(gj)
+    image4 = gj.ImageParameters(width=W4K, height=H4K,
+                                color_space=gj.ColorSpace.YCBCR_BT709,
+                                pixel_format=gj.PixelFormat.PF_420_U8_P0P1P2)
+    frames4 = i420_frames(gj, make_image(H4K, W4K), image4, BATCH_4K)
+    e1 = (dct.fdct_quant, entropy.huffman_blocks, entropy.merge_stuff)
+    e0 = (preprocess.preprocess_planes, dct.fdct_quant_planes,
+          entropy.huffman_blocks, entropy.merge_stuff)
+    d2 = (decode.huffman_decode, dct.idct_rgb)
+    d3 = (decode.huffman_decode, dct.idct_planes,
+          preprocess.postprocess_planes)
+    rows, streams = [], {}
+    cells = (("main path 8K", frames8, params, image, e1, d2,
+              (gj.ColorSpace.RGB, gj.PixelFormat.PF_444_U8_P012)),
+             ("(a) 4K", frames4, params_a, image4, e0, d3,
+              (gj.ColorSpace.YCBCR_BT709, gj.PixelFormat.PF_420_U8_P0P1P2)))
+    for name, frames, p, im, ekern, dkern, out_format in cells:
+        n = len(frames)
+        want = [enc.encode(f, p, im) for f in frames]
+        got = []
+        e_launch = count_launches(
+            ekern, lambda: got.extend(enc.encode_batch(frames, p, im)), n,
+            f"(ii) {name}")
+        bad = [i for i in range(n) if got[i] != want[i]]
+        if bad:
+            fail(f"phase 14 (ii) {name}: the batch's streams {bad} differ "
+                 "from encode of the same frames")
+        e_batch, e_loop = batch_vs_loop(
+            lambda: enc.encode_batch(frames, p, im),
+            lambda: [enc.encode(f, p, im) for f in frames], n)
+        print(f"phase 14 (ii): {card}: encode_batch of {n} frames of "
+              f"{name} ({sum(map(len, got))} bytes): every stream equals "
+              f"encode of its frame; launches {e_launch}; {e_batch:.3f} ms "
+              f"a frame against the loop of encode's {e_loop:.3f} ms "
+              f"(host clock, median of 3)", flush=True)
+        streams[name] = got
+
+        # (iii) decode_batch of those streams against the loop of decode
+        dec = gj.Decoder(backend="torch", device="cuda")
+        dec.set_output_format(*out_format)
+        want_raw = [dec.decode(d)[0] for d in got]
+        outs = []
+        d_launch = count_launches(
+            dkern, lambda: outs.extend(dec.decode_batch(got)), n,
+            f"(iii) {name}")
+        bad = [i for i in range(n) if not (
+            isinstance(outs[i][0], np.ndarray)
+            and np.array_equal(outs[i][0], want_raw[i]))]
+        if bad:
+            fail(f"phase 14 (iii) {name}: the batch's frames {bad} differ "
+                 "from decode of the same streams")
+        del outs, want_raw
+        d_batch, d_loop = batch_vs_loop(
+            lambda: dec.decode_batch(got),
+            lambda: [dec.decode(d) for d in got], n)
+        print(f"phase 14 (iii): {card}: decode_batch of those {n} streams "
+              f"to {out_format[1].name}: every frame equals decode of its "
+              f"stream; launches {d_launch}; {d_batch:.3f} ms a frame "
+              f"against the loop of decode's {d_loop:.3f} ms (host clock, "
+              f"median of 3)", flush=True)
+        rows.append({"cell": name, "frames": n, "card": card,
+                     "encode_batch_ms_per_frame": e_batch,
+                     "encode_loop_ms_per_frame": e_loop,
+                     "decode_batch_ms_per_frame": d_batch,
+                     "decode_loop_ms_per_frame": d_loop,
+                     "encode_launches": e_launch,
+                     "decode_launches": d_launch})
+        del dec
+    del frames4
+    torch.cuda.empty_cache()
+
+    # (iii) a mixed batch, a corrupt stream, decode_to_device
+    small = gj.Encoder(backend="golden").encode(
+        make_image(136, 200).reshape(-1),
+        gj.Parameters(quality=QUALITY, restart_interval=0),
+        gj.ImageParameters(width=200, height=136,
+                           color_space=gj.ColorSpace.RGB,
+                           pixel_format=gj.PixelFormat.PF_444_U8_P012))
+    main = streams["main path 8K"]
+    mixed = [main[0], streams["(a) 4K"][0], small, main[1]]
+    dec = gj.Decoder(backend="torch", device="cuda")
+    if not dec._golden_route(dec._job(gj.read_image(small)).plan):
+        fail("phase 14 (iii): the 200x136 stream does not take the golden "
+             "route")
+    outs = dec.decode_batch(mixed)
+    for i, d in enumerate(mixed):
+        w, oi = dec.decode(d)
+        if not (np.array_equal(outs[i][0], w)
+                and outs[i][1].width == oi.width):
+            fail(f"phase 14 (iii): frame {i} of the mixed batch differs "
+                 "from its decode")
+    try:
+        dec.decode_batch([main[0], b"\xff\xd8garbage", main[1]])
+        fail("phase 14 (iii): a corrupt stream in a batch did not raise")
+    except JpegParseError:
+        pass
+    after, _ = dec.decode(main[1])
+    dec.output_to_device = True
+    dev = dec.decode_batch(main[:3])
+    dec.output_to_device = False
+    if not all(isinstance(r, torch.Tensor) and r.is_cuda for r, _ in dev):
+        fail("phase 14 (iii): decode_to_device through the batch did not "
+             "give CUDA tensors")
+    if not torch.equal(dev[1][0].cpu(), torch.from_numpy(after)):
+        fail("phase 14 (iii): a CUDA frame of the batch differs from the "
+             "host decode")
+    del dev, outs
+    print("phase 14 (iii): a mixed batch (8K, 4K to RGB, 200x136 on the "
+          "golden route, 8K) equals the per-frame decodes; a corrupt "
+          "stream in the middle raised JpegParseError and a decode after "
+          "it succeeded; output_to_device through the batch gave CUDA "
+          "tensors equal to the host decode", flush=True)
+
+    # (iv) the bench hook
+    dec.capture_device_call = True
+    ref_raw, _ = dec.decode(data)
+    fn, args = dec.last_device_call
+    if not (all(a.is_cuda for a in args)
+            and torch.equal(fn(*args).cpu(), torch.from_numpy(ref_raw))):
+        fail("phase 14 (iv): the captured device call's replay differs from "
+             "the decode")
+    replay_ms = cuda_ms(lambda: fn(*args), 10)
+    print(f"phase 14 (iv): {card}: capture_device_call's replay of the 8K "
+          f"main-path decode equals its output; replay {replay_ms:.4f} ms "
+          f"(CUDA events, mean of 10)", flush=True)
+    del dec, fn, args
+    torch.cuda.empty_cache()
+
+    # (v) the command line
+    from gpujpeg_tpu_torch import cli
+    from gpujpeg_tpu_torch.utils import image_io
+    listing = run_cli("-L", timeout=120)
+    if torch.cuda.get_device_name(0) not in listing:
+        fail(f"phase 14 (v): -L does not name the card: {listing!r}")
+    with tempfile.TemporaryDirectory() as tmp:
+        ppm, jpg, back = (os.path.join(tmp, n)
+                          for n in ("in.ppm", "out.jpg", "back.ppm"))
+        image_io.save_image(ppm, raw, image)
+        run_cli("-e", ppm, jpg)
+        with open(jpg, "rb") as f:
+            if f.read() != data:
+                fail("phase 14 (v): -e of the 8K PPM differs from "
+                     "Encoder.encode of its pixels")
+        run_cli("-d", jpg, back)
+        back_raw, _ = image_io.load_image(back)
+        want, _ = gj.Decoder(backend="torch", device="cuda").decode(data)
+        if not np.array_equal(back_raw, want):
+            fail("phase 14 (v): -d differs from Decoder.decode")
+        hd = gj.ImageParameters(width=1920, height=1080,
+                                color_space=gj.ColorSpace.YCBCR_BT601_256LVLS,
+                                pixel_format=gj.PixelFormat.PF_420_U8_P0P1P2)
+        video = i420_frames(gj, make_image(1080, 1920), hd, 8)
+        y4m = os.path.join(tmp, "in.y4m")
+        with open(y4m, "wb") as f:
+            f.write(image_io.y4m_write(image_io.Y4mInfo(
+                width=1920, height=1080, subsampling=420), video))
+        pattern = os.path.join(tmp, "f_%02d.jpg")
+        run_cli(y4m, pattern)
+        args = cli.build_parser().parse_args([y4m, pattern])
+        p_cli, im_cli = cli._adjust_params(
+            args, gj.Parameters(quality=75, restart_interval=8,
+                                perf_stats=True),
+            gj.ImageParameters(width=0, height=0,
+                               color_space=gj.ColorSpace.NONE,
+                               pixel_format=gj.PixelFormat.NONE), y4m, True)
+        enc = gj.Encoder(backend="torch", device="cuda")
+        for i, frame in enumerate(video):
+            with open(pattern % i, "rb") as f:
+                if f.read() != enc.encode(frame, p_cli, im_cli):
+                    fail(f"phase 14 (v): frame {i} of the Y4M batch differs "
+                         "from its encode")
+    print(f"phase 14 (v): -L names {torch.cuda.get_device_name(0)}; -e of "
+          f"the 8K PPM equals Encoder.encode, -d back equals "
+          f"Decoder.decode; a Y4M of 8 HD frames to a %d pattern gives the "
+          f"per-frame encodes (restart interval {p_cli.restart_interval})",
+          flush=True)
+
+    # (vi) the examples at their defaults
+    root = os.path.dirname(os.path.abspath(__file__))
+    for name in ("device_array_roundtrip", "video_pipeline"):
+        r = subprocess.run([sys.executable, "-m",
+                            f"gpujpeg_tpu_torch.examples.{name}"],
+                           cwd=root, capture_output=True, text=True,
+                           timeout=300)
+        if r.returncode != 0:
+            fail(f"phase 14 (vi): examples/{name}.py exited {r.returncode}: "
+                 f"{r.stderr[-2000:]}")
+        print(f"phase 14 (vi): {card}: examples/{name}.py: "
+              + " | ".join(r.stdout.strip().splitlines()), flush=True)
+    torch.cuda.empty_cache()
+    print(f"phase 14: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return rows
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a "
@@ -2370,8 +2705,10 @@ def main() -> None:
     srows, slaunches = phase_stage1(gj, img, card)
     rows += srows
     launches.update(slaunches)
+    batch_rows = phase_batch(gj, img, data, card)
     for r in rows:
         r["launches"] = launches[r["name"]]
+    print(json.dumps({"batch": batch_rows}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

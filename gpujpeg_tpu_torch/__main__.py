@@ -1,0 +1,7 @@
+"""``python -m gpujpeg_tpu_torch`` == gpujpegtool-torch."""
+import sys
+
+from .cli import main
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -12,10 +12,21 @@ output pixel format and colour space: hand-written CUDA kernels on
 streams with few segments take the host decoder
 (gpujpeg_decoder.c:238-252), streams without restart markers among
 them.
+
+:meth:`Decoder.decode_batch` pipelines a frame sequence: the next
+frame's parse and row build run on the host while earlier frames'
+kernels and copies back proceed. The reference's ``_fuse_frames`` and
+``_launch_fused`` (B same-geometry frames vmapped into one launch) have
+no counterpart: they amortised the TPU's dispatch floor, and one frame's
+kernels already fill the card (``ops/pipeline.py``). Its
+``_fuse_compatible`` check is the decode context cache's key
+(``pipeline._dec_context``, the last four geometries and table sets).
 """
 from __future__ import annotations
 
+import collections
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -81,6 +92,18 @@ def golden_planes(info, plan, coeff_scan: np.ndarray) -> list[np.ndarray]:
     return planes
 
 
+class _Job(NamedTuple):
+    """A parsed stream's decode operands, in the argument order of
+    ``pipeline.decode_device``."""
+    plan: object
+    info: object
+    scan_data: list
+    segments_by_scan: list
+    dc_by_comp: list
+    ac_by_comp: list
+    out_image: ImageParameters
+
+
 class DecoderStats:
     def __init__(self) -> None:
         self.duration_stream = 0.0
@@ -126,6 +149,12 @@ class Decoder:
         self.output_format: PixelFormat | None = None
         self.output_color_space: ColorSpace | None = None
         self.output_to_device = False
+        #: benchmarking hook: when True, the device route records ``(fn,
+        #: args)`` of each decode on :attr:`last_device_call`, ``args``
+        #: already on the device, such that ``fn(*args)`` replays the
+        #: decode's kernels and returns the same flat raw frame
+        self.capture_device_call = False
+        self.last_device_call = None
         self._contexts: dict = {}
 
     def init(self, params, image) -> None:
@@ -168,6 +197,57 @@ class Decoder:
         finally:
             self.output_to_device = False
 
+    def decode_batch(self, datas, window: int = 3) -> list:
+        """Decode a frame sequence; returns ``[(raw, ImageParameters),
+        ...]`` in order, each equal to :meth:`decode` of that stream
+        (reference: ``Decoder.decode_batch``). At most ``window`` frames
+        are in flight: a frame's parse and row build run on the host
+        before the oldest frame is waited for, so they overlap the device
+        work of the frames before it. Frames that take the golden route
+        are decoded in turn as their own entries; frames of another
+        geometry or table set take their own decode context. With
+        :attr:`output_to_device` each device-route frame stays on the
+        device. On the card the rows go up through pinned memory and each
+        frame comes back into pinned memory of its own. A corrupt stream
+        raises :class:`JpegParseError` there and leaves the decoder
+        usable. Per-frame stats are not recorded."""
+        from ..ops.pipeline import (PinnedRing, decode_collect,
+                                    decode_launch, decode_prep)
+        if window < 1:
+            raise ValueError(f"window must be at least 1, got {window}")
+        staging = (PinnedRing(window + 1) if self.backend == "torch"
+                   and self.device.type == "cuda" else None)
+        out: list = []
+        pending: collections.deque = collections.deque()
+
+        def collect():
+            raw, out_image = pending.popleft()
+            if not isinstance(raw, np.ndarray):
+                raw = decode_collect(raw)
+                if not self.output_to_device:
+                    raw = raw.numpy()
+            out.append((raw, out_image))
+
+        try:
+            for data in datas:
+                job = self._job(stream_reader.read_image(data))
+                if self._golden_route(job.plan):
+                    raw = self._decode_golden(*job)
+                else:
+                    ctx, rows = decode_prep(self, *job)
+                    while len(pending) >= window:
+                        collect()
+                    raw = decode_launch(self, ctx, rows, staging)
+                while len(pending) >= window:
+                    collect()
+                pending.append((raw, job.out_image))
+            while pending:
+                collect()
+        finally:
+            if staging is not None:
+                staging.wait()
+        return out
+
     def set_output_format(self, color_space: ColorSpace,
                           pixel_format: PixelFormat) -> None:
         """(reference: gpujpeg_decoder_set_output_format,
@@ -181,9 +261,24 @@ class Decoder:
         info = stream_reader.read_image(data)
         self.stats.duration_stream = (time.perf_counter() - t0) * 1e3
 
+        job = self._job(info)
+        if self._golden_route(job.plan):
+            return self._decode_golden(*job), job.out_image
+
+        from ..ops.pipeline import decode_device
+        raw = decode_device(self, *job)
+        if self.output_to_device:
+            return raw, job.out_image
+        t0 = time.perf_counter()
+        host = raw.cpu().numpy()
+        self.stats.duration_memory_from = (time.perf_counter() - t0) * 1e3
+        return host, job.out_image
+
+    def _job(self, info) -> "_Job":
+        """Parsed stream -> what a decode route takes: its plan, scans,
+        segments, Huffman tables and the output's ImageParameters."""
         plan, scan_data, segments_by_scan = self._plan_from_info(info)
         dc_by_comp, ac_by_comp = huffman_maps(info)
-
         out_image = ImageParameters(
             width=info.width, height=info.height,
             color_space=(self.output_color_space
@@ -195,24 +290,17 @@ class Decoder:
                           if self.output_format is not None
                           else info.deduce_pixel_format()),
         )
+        return _Job(plan, info, scan_data, segments_by_scan, dc_by_comp,
+                    ac_by_comp, out_image)
 
-        if self.backend == "golden" or \
-                plan.n_segments < CPU_SEGMENT_THRESHOLD:
-            return self._decode_golden(info, plan, scan_data,
-                                       segments_by_scan, dc_by_comp,
-                                       ac_by_comp, out_image), out_image
+    def _golden_route(self, plan) -> bool:
+        """True when a stream takes the host decoder: the golden backend,
+        or fewer than :data:`CPU_SEGMENT_THRESHOLD` segments (streams
+        without restart markers among them)."""
+        return (self.backend == "golden"
+                or plan.n_segments < CPU_SEGMENT_THRESHOLD)
 
-        from ..ops.pipeline import decode_device
-        raw = decode_device(self, plan, info, scan_data, segments_by_scan,
-                            dc_by_comp, ac_by_comp, out_image)
-        if self.output_to_device:
-            return raw, out_image
-        t0 = time.perf_counter()
-        host = raw.cpu().numpy()
-        self.stats.duration_memory_from = (time.perf_counter() - t0) * 1e3
-        return host, out_image
-
-    def _decode_golden(self, info, plan, scan_data, segments_by_scan,
+    def _decode_golden(self, plan, info, scan_data, segments_by_scan,
                        dc_by_comp, ac_by_comp, out_image) -> np.ndarray:
         t1 = time.perf_counter()
         from ..native import decode_segments_native

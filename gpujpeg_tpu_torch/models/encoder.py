@@ -16,12 +16,13 @@ import torch
 
 from ..ops import golden
 from ..ops.blocks import plane_to_blocks
+from ..ops.huffman_encode import COMPACT_CHUNK_BYTES
 from ..ops.preprocess import preprocess, upload_raw
 from ..params import ImageParameters, Parameters
 from ..plan import CoderPlan, make_plan
 from ..stream.writer import HeaderType, JpegWriter
 from ..tables import default_huffman_table, quant_table_zz
-from ..types import ComponentType, HuffmanType
+from ..types import ComponentType, HuffmanType, image_calculate_size
 
 BACKENDS = ("torch", "golden")
 
@@ -85,6 +86,62 @@ class Encoder:
         }
         return quant_zz, huff
 
+    def warmup(self, params: Parameters, image: ImageParameters) -> None:
+        """Prepare for a geometry before the first real encode (the
+        analog of the reference's gpujpeg_encoder_allocate and
+        first-iteration cost, gpujpeg_encoder.c:221-254, FAQ.md:14-19): on
+        a CUDA device builds or loads the kernel library, then encodes a
+        zero frame of the geometry, which sets up its device operands."""
+        if self.backend == "torch" and self.device.type == "cuda":
+            from .. import _build
+            _build.load_kernels()
+        size = image_calculate_size(image.width, image.height,
+                                    image.pixel_format)
+        self.encode(np.zeros(size, np.uint8), params, image)
+
+    def allocate(self, params: Parameters, image: ImageParameters) -> None:
+        """Pre-allocate for a geometry before the first encode
+        (reference: gpujpeg_encoder_allocate, gpujpeg_encoder.c:221-254).
+        Alias of :meth:`warmup`."""
+        self.warmup(params, image)
+
+    #: Device bytes of one torch encode at its peak, a pixel, at the worst
+    #: sampling (4:4:4 with 4 components, RGBA in: 4 blocks a 64 pixels)
+    #: and any quality (E2 and E3 are sized for the worst block, so the
+    #: quality does not change them). The peak comes while E3 runs: the
+    #: card holds the raw frame (at most 4 B a pixel) and, a block, its
+    #: coefficients (256 B), E2's string row (224 B) and bit length (4 B),
+    #: E3's output row (448 B, every byte of the worst string stuffed; 464
+    #: at restart interval 1 with the marker and the row rounded to 16),
+    #: the context's block geometry (16 B) and, at one block a segment,
+    #: the segment arrays and E3's lengths (28 B): 4 + 4 * 992 / 64 = 66.
+    #: E0's planes (at most 4 B a pixel) are freed before E2 allocates,
+    #: and the compaction that follows E3 holds the raw frame and E3's
+    #: rows, counted here, and scratch of its own, which is not a pixel's
+    #: (:attr:`_DEVICE_BYTES_FIXED`). ``encode_batch`` holds three
+    #: frames' raw frames and E3 rows at once.
+    _DEVICE_BYTES_PER_PIXEL = 66
+    #: the compaction's scratch: 24 B of int64 indices and 1 B of output
+    #: for each byte of a chunk (``huffman_encode.compact_segments``)
+    _DEVICE_BYTES_FIXED = 25 * COMPACT_CHUNK_BYTES
+
+    @classmethod
+    def max_pixels(cls, memory_bytes: int) -> int:
+        """Largest image (in pixels) whose torch encode fits in
+        ``memory_bytes`` of device memory, by the bound of
+        :meth:`max_memory` (reference: gpujpeg_encoder_max_pixels,
+        gpujpeg_encoder.c:132-168)."""
+        return max(0, (memory_bytes - cls._DEVICE_BYTES_FIXED)
+                   // cls._DEVICE_BYTES_PER_PIXEL)
+
+    @classmethod
+    def max_memory(cls, pixels: int) -> int:
+        """Device memory (bytes) that bounds the peak of one torch encode
+        of ``pixels`` at any quality, sampling and pixel format (reference:
+        gpujpeg_encoder_max_memory, gpujpeg_encoder.c:171-218); blocks of
+        MCU padding count as pixels."""
+        return pixels * cls._DEVICE_BYTES_PER_PIXEL + cls._DEVICE_BYTES_FIXED
+
     def encode(self, raw, params: Parameters, image: ImageParameters) -> bytes:
         """Encode one frame to a JPEG byte stream.
 
@@ -117,6 +174,26 @@ class Encoder:
         out = self._assemble(plan, quant_zz, huff, scan_bodies, seg_sizes_by_scan)
         self.stats.duration_stream = (time.perf_counter() - t0) * 1e3
         return out
+
+    def encode_batch(self, raws, params: Parameters,
+                     image: ImageParameters) -> list[bytes]:
+        """Encode same-geometry frames; returns one JPEG byte stream a
+        frame, each equal to :meth:`encode` of that frame (reference:
+        ``Encoder.encode_batch``). On the torch backend with restart
+        markers, up to three frames' device work is queued ahead of
+        each frame's copy back and stream assembly
+        (``pipeline.encode_batch_device``); ``restart_interval == 0`` and
+        the golden backend encode frame by frame. Frames may be host
+        bytes, NumPy arrays or tensors, as :meth:`encode` takes them.
+        Per-frame stats are not recorded."""
+        if self.backend != "torch" or params.restart_interval <= 0:
+            return [self.encode(r, params, image) for r in raws]
+        from ..ops.pipeline import encode_batch_device
+        plan = make_plan(params, image)
+        quant_zz, huff = self._tables(params)
+        return [self._assemble(plan, quant_zz, huff, *result)
+                for result in encode_batch_device(self, raws, plan, quant_zz,
+                                                  huff)]
 
     _RST = tuple(bytes((0xFF, 0xD0 + i)) for i in range(8))
 

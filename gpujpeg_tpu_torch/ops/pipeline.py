@@ -46,6 +46,22 @@ host, uploads them and takes one of two routes after D1 huffman_decode
 On a CUDA device each stage is a hand-written kernel; on the CPU each
 runs its plain torch version.
 
+**Batches.** :func:`encode_batch_device` (``Encoder.encode_batch``)
+queues up to ``depth`` frames' uploads and kernels on the current
+stream before it brings back the oldest frame: its ``out_len`` comes
+back into pinned memory without blocking, and its compaction gather and
+copy back run on a side stream, so they do not queue behind the later
+frames' kernels. Host frames go to the card through a
+:class:`PinnedRing` of ``depth + 1`` pinned buffers with ``non_blocking``
+copies. The decode is split for ``Decoder.decode_batch`` into
+:func:`decode_prep` (the context and the segment rows, on the host),
+:func:`decode_launch` (upload through a :class:`PinnedRing`, the
+kernels, and the frame's copy back into fresh pinned memory, without a
+sync) and :func:`decode_collect` (the wait on the frame's event). On
+the CPU there is no stream and no pinned memory and the same code runs
+frame after frame. The single-frame :func:`encode_segments_device` and
+:func:`decode_device` keep their pageable transfers.
+
 **Stage statistics.** With ``Parameters.perf_stats`` (encode) or
 ``Decoder.perf_stats`` (decode) a :class:`StageClock` marks the stage
 boundaries: on the card a CUDA event recorded on the stream between two
@@ -71,8 +87,15 @@ The reference's TPU machinery has no counterpart, and why:
 * 16K chunking (``jax_pipeline.py:492-583``), written for a 16 GB chip:
   per block the port holds 256 B of coefficients, 224 B of E2 scratch,
   4 B of bit length and at most 448 B of E3 output, about 0.93 KB, so a
-  16K 4:4:4 frame of 6.2M blocks needs about 5.8 GB of the H100's 80 GB;
-* vmap batching, the staged executables that its stage statistics
+  16K 4:4:4 frame of 6.2M blocks needs about 5.8 GB of the H100's 80 GB
+  (``Encoder.max_memory``);
+* vmap batching of B frames into one launch (``_batch_frames_auto``,
+  ``GPUJPEG_TPU_BATCH_FRAMES``, ``batched_fn``, and the decoder's
+  ``_fuse_frames`` and ``_launch_fused``), which amortised the TPU's
+  0.5-1 ms dispatch floor: a batch here launches each kernel once per
+  frame, since one frame's kernels already fill the card (an HD 4:4:4
+  frame has 97,200 blocks) and a launch costs microseconds;
+* the staged executables that its stage statistics
   need (a launch here is already one stage) and XLA fallbacks, and on
   the decode its seg_tile sizing, v2/v3 route (K4 or K5 by ``wcap``),
   wcap buckets and slot templates: D1 takes any row width and block
@@ -80,6 +103,7 @@ The reference's TPU machinery has no counterpart, and why:
 """
 from __future__ import annotations
 
+import collections
 import time
 
 import numpy as np
@@ -161,6 +185,45 @@ def decode_eligible(plan: CoderPlan, out_image) -> bool:
             and unpack_eligible(plan, out_image) and _scan_order_ok(plan))
 
 
+class PinnedRing:
+    """A ring of pinned host buffers that carries host arrays to the card
+    for the batch paths: each array is copied into the next slot and sent
+    with a ``non_blocking`` copy on the current stream. A slot is refilled
+    only after the event recorded behind its last copy has completed, so
+    no buffer is overwritten under a copy in flight."""
+
+    def __init__(self, slots: int):
+        self.bufs: list = [None] * slots
+        self.events: list = [None] * slots
+        self.next = 0
+
+    def upload(self, a: np.ndarray, device: torch.device) -> torch.Tensor:
+        """Host array -> a flat uint8 tensor of its bytes on ``device`` (a
+        CUDA device), queued without blocking the host."""
+        src = torch.from_numpy(np.ascontiguousarray(a).reshape(-1)
+                               .view(np.uint8))
+        k = self.next
+        self.next = (k + 1) % len(self.bufs)
+        if self.events[k] is not None:
+            self.events[k].synchronize()
+        if self.bufs[k] is None or self.bufs[k].numel() < src.numel():
+            self.bufs[k] = torch.empty(src.numel(), dtype=torch.uint8,
+                                       pin_memory=True)
+        host = self.bufs[k][:src.numel()]
+        host.copy_(src)
+        dev = torch.empty(src.numel(), dtype=torch.uint8, device=device)
+        dev.copy_(host, non_blocking=True)
+        self.events[k] = torch.cuda.Event()
+        self.events[k].record(torch.cuda.current_stream(device))
+        return dev
+
+    def wait(self) -> None:
+        """Block until every slot's last copy has completed."""
+        for ev in self.events:
+            if ev is not None:
+                ev.synchronize()
+
+
 class _EncContext:
     """The plan's device operands: tables, DCT operator, per-component
     divisor rows, colour-transform constants, plane geometry and segment
@@ -183,13 +246,14 @@ class _EncContext:
         if self.rgb_route:
             self.xf = transform_consts_tensor(pack_consts(plan), device)
 
-    def upload(self, raw) -> torch.Tensor:
+    def upload(self, raw, staging: PinnedRing | None = None
+               ) -> torch.Tensor:
         """Raw frame (bytes, a NumPy array or a tensor) -> what
         :meth:`run` takes: (H, W, 3) uint8 on the E1 route, the flat bytes
-        otherwise."""
+        otherwise; host bytes go through ``staging`` when given."""
         if self.rgb_route:
-            return upload_rgb(raw, self.plan, self.device)
-        return upload_raw(raw, self.plan.image, self.device)
+            return upload_rgb(raw, self.plan, self.device, staging)
+        return upload_raw(raw, self.plan.image, self.device, staging)
 
     def run(self, x: torch.Tensor, clock: StageClock | None = None):
         """:meth:`upload`'s tensor -> (out, out_len, seg_bits, n_ff) of
@@ -243,13 +307,14 @@ def _enc_context(cache: dict, plan: CoderPlan, quant_zz: dict, huff: dict,
     return ctx
 
 
-def upload_rgb(raw, plan: CoderPlan, device: torch.device) -> torch.Tensor:
+def upload_rgb(raw, plan: CoderPlan, device: torch.device,
+               staging: PinnedRing | None = None) -> torch.Tensor:
     """Raw interleaved RGB (bytes, a NumPy array or a uint8 or int32
     tensor) -> (H, W, 3) uint8 tensor on ``device``, by
     :func:`preprocess.upload_raw` (its checks; a tensor on ``device`` is
     not copied)."""
     H, W = plan.image.height, plan.image.width
-    return upload_raw(raw, plan.image, device).view(H, W, 3)
+    return upload_raw(raw, plan.image, device, staging).view(H, W, 3)
 
 
 def encode_segments_device(encoder, raw, plan: CoderPlan, quant_zz: dict,
@@ -290,6 +355,60 @@ def _split_scan_bodies(plan: CoderPlan, ctx: _EncContext, out: torch.Tensor,
         seg_sizes_by_scan.append(out_len_h[seg:seg + n].astype(np.int64))
         seg += n
     return scan_bodies, seg_sizes_by_scan
+
+
+def encode_batch_device(encoder, raws, plan: CoderPlan, quant_zz: dict,
+                        huff: dict, depth: int = 3):
+    """Pipelined encode of same-geometry frames (the reference's
+    ``jax_pipeline.encode_batch_device``): up to ``depth`` frames' uploads
+    and kernels (one launch of each kernel a frame) are queued on the
+    current stream before the oldest frame is brought back, so its copy
+    back, compaction and the caller's stream assembly run under the later
+    frames' kernels. Yields one :func:`encode_segments_device`-shaped
+    result per frame, in order. On the card host frames go through a
+    :class:`PinnedRing` of ``depth + 1`` buffers, each frame's
+    ``out_len`` comes back into pinned memory behind an event, and the
+    compaction gather runs on a side stream that waits on that event
+    (``out`` is recorded on it), so it does not queue behind frames
+    ``i+1 .. i+depth``. Stage statistics are not recorded."""
+    if depth < 1:
+        raise ValueError(f"depth must be at least 1, got {depth}")
+    ctx = _enc_context(encoder._contexts, plan, quant_zz, huff,
+                       encoder.device)
+    cuda = ctx.device.type == "cuda"
+    staging = PinnedRing(depth + 1) if cuda else None
+    side = torch.cuda.Stream(ctx.device) if cuda else None
+    pending: collections.deque = collections.deque()
+
+    def collect():
+        out, out_len, ev = pending.popleft()
+        if ev is None:
+            return _split_scan_bodies(plan, ctx, out, out_len.numpy())
+        ev.synchronize()
+        with torch.cuda.stream(side):
+            side.wait_event(ev)
+            out.record_stream(side)
+            return _split_scan_bodies(plan, ctx, out, out_len.numpy())
+
+    try:
+        for raw in raws:
+            out, out_len, _seg_bits, _n_ff = ctx.run(ctx.upload(raw,
+                                                                staging))
+            ev = None
+            if cuda:
+                host = torch.empty(out_len.shape, dtype=out_len.dtype,
+                                   pin_memory=True)
+                host.copy_(out_len, non_blocking=True)
+                out_len, ev = host, torch.cuda.Event()
+                ev.record(torch.cuda.current_stream(ctx.device))
+            pending.append((out, out_len, ev))
+            if len(pending) >= depth:
+                yield collect()
+        while pending:
+            yield collect()
+    finally:
+        if staging is not None:
+            staging.wait()
 
 
 # ---------------------------------------------------------------------------
@@ -387,21 +506,40 @@ def _dec_context(cache: dict, plan: CoderPlan, info, dc_by_comp, ac_by_comp,
     return ctx
 
 
+def decode_prep(decoder, plan: CoderPlan, info, scan_data,
+                segments_by_scan, dc_by_comp, ac_by_comp, out_image):
+    """The host half of a device decode: (the decode context, the (S,
+    wcap) int32 segment rows)."""
+    ctx = _dec_context(decoder._contexts, plan, info, dc_by_comp, ac_by_comp,
+                       out_image, decoder.device)
+    return ctx, build_rows(plan, scan_data, segments_by_scan)
+
+
+def _dec_run(decoder, ctx: _DecContext, rows_dev: torch.Tensor,
+             clock: StageClock | None = None) -> torch.Tensor:
+    """The decode's kernels on rows already on the device; with
+    ``decoder.capture_device_call`` set, records ``(fn, args)`` on
+    ``decoder.last_device_call`` such that ``fn(*args)`` replays them and
+    returns the same flat raw frame."""
+    if decoder.capture_device_call:
+        decoder.last_device_call = (ctx.run, (rows_dev,))
+    return ctx.run(rows_dev, clock)
+
+
 def decode_device(decoder, plan: CoderPlan, info, scan_data,
                   segments_by_scan, dc_by_comp, ac_by_comp,
                   out_image) -> torch.Tensor:
     """Run the device decode; returns the flat uint8 raw frame in the
     output's pixel format on the decoder's device and fills the
     decoder's upload and device stats."""
-    ctx = _dec_context(decoder._contexts, plan, info, dc_by_comp, ac_by_comp,
-                       out_image, decoder.device)
-    rows = build_rows(plan, scan_data, segments_by_scan)
+    ctx, rows = decode_prep(decoder, plan, info, scan_data, segments_by_scan,
+                            dc_by_comp, ac_by_comp, out_image)
     clock = StageClock(ctx.device) if decoder.perf_stats else None
     t0 = time.perf_counter()
     rows_dev = torch.from_numpy(rows).to(ctx.device)
     t1 = time.perf_counter()
     _mark(clock)
-    raw = ctx.run(rows_dev, clock)
+    raw = _dec_run(decoder, ctx, rows_dev, clock)
     if ctx.device.type == "cuda":
         torch.cuda.synchronize(ctx.device)
     t2 = time.perf_counter()
@@ -412,4 +550,37 @@ def decode_device(decoder, plan: CoderPlan, info, scan_data,
     if clock is not None:
         (st.duration_huffman_coder, st.duration_dct_quantization,
          st.duration_postprocessor) = clock.durations()
+    return raw
+
+
+def decode_launch(decoder, ctx: _DecContext, rows: np.ndarray,
+                  staging: PinnedRing | None):
+    """The device half of a batch decode, without a sync: the rows are
+    uploaded (through ``staging`` on the card), the kernels launched and,
+    unless ``decoder.output_to_device``, the frame's copy back queued into
+    fresh pinned memory, which is not reused while a caller holds it.
+    Returns what :func:`decode_collect` takes."""
+    if staging is None:
+        rows_dev = torch.from_numpy(rows).to(ctx.device)
+    else:
+        rows_dev = staging.upload(rows, ctx.device).view(
+            torch.int32).view(rows.shape)
+    raw = _dec_run(decoder, ctx, rows_dev)
+    if ctx.device.type != "cuda":
+        return raw, None
+    if not decoder.output_to_device:
+        host = torch.empty(raw.shape, dtype=raw.dtype, pin_memory=True)
+        host.copy_(raw, non_blocking=True)
+        raw = host
+    ev = torch.cuda.Event()
+    ev.record(torch.cuda.current_stream(ctx.device))
+    return raw, ev
+
+
+def decode_collect(launched) -> torch.Tensor:
+    """:func:`decode_launch`'s result -> the flat raw frame (on the host,
+    or on the device with ``output_to_device``), once its work is done."""
+    raw, ev = launched
+    if ev is not None:
+        ev.synchronize()
     return raw

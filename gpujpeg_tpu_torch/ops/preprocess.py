@@ -253,7 +253,8 @@ def raw_size(image: ImageParameters) -> int:
     return image.width * image.height * PIXEL_FORMAT_DESC[pf].bpp
 
 
-def upload_raw(raw, image: ImageParameters, device) -> torch.Tensor:
+def upload_raw(raw, image: ImageParameters, device,
+               staging=None) -> torch.Tensor:
     """A raw frame in any pixel format -> its flat uint8 bytes on
     ``device``. ``raw`` is bytes, a NumPy array or a tensor: a uint8
     tensor as it is, an int32 one as its little-endian bytes (the JAX
@@ -262,7 +263,9 @@ def upload_raw(raw, image: ImageParameters, device) -> torch.Tensor:
     contiguous); one on another device is copied there once, never
     through NumPy. Raises ValueError for a tensor of another dtype, when
     the byte count is not the format's (:func:`raw_size`), or for UYVY of
-    odd width, which the reference's loader cannot unpack either."""
+    odd width, which the reference's loader cannot unpack either.
+    ``staging`` (a ``pipeline.PinnedRing``) carries host bytes to the
+    card through pinned memory without blocking the host."""
     if isinstance(raw, torch.Tensor):
         if raw.dtype == torch.int32:
             raw = raw.contiguous().view(torch.uint8)
@@ -284,6 +287,8 @@ def upload_raw(raw, image: ImageParameters, device) -> torch.Tensor:
             and image.width % 2):
         raise ValueError("PF_422_U8_P1020 needs an even width")
     if isinstance(a, np.ndarray):
+        if staging is not None:
+            return staging.upload(a, device)
         a = torch.from_numpy(np.ascontiguousarray(a))
     return a.to(device)
 

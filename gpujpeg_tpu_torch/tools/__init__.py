@@ -15,6 +15,9 @@ versions; each draws its inputs with ``np.random.default_rng(0)`` in the
 order its JAX script does. The TPU tile sweeps of the scripts have no
 counterpart; the tools print each kernel's launch configuration instead.
 A kernel's exception is not caught.
+
+:mod:`.reformat` is a host tool, the copy of the JAX package's JPEG
+reformatter (APP13 segment info added to a foreign stream).
 """
 from __future__ import annotations
 

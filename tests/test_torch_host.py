@@ -25,17 +25,54 @@ def _params(mod, w, h, q, ri, interleaved=False):
 
 
 def test_port_imports_without_jax():
-    code = ("import sys, gpujpeg_tpu_torch; "
-            "import gpujpeg_tpu_torch.tools.perf_stage1, "
-            "gpujpeg_tpu_torch.tools.ablate_stage1, "
-            "gpujpeg_tpu_torch.tools.perf_rgbpack; "
+    """Every module of the package, found by walking it (so no new module
+    escapes the check), imports in a fresh process without loading JAX
+    or the JAX package."""
+    code = ("import importlib, pkgutil, sys, gpujpeg_tpu_torch as p; "
+            "mods = [m.name for m in pkgutil.walk_packages("
+            "p.__path__, 'gpujpeg_tpu_torch.')]; "
+            "[importlib.import_module(m) for m in mods]; "
             "bad = [m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'gpujpeg_tpu')]; "
-            "assert not bad, bad; print('clean')")
+            "assert not bad, bad; print('clean', *sorted(mods))")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0 and "clean" in r.stdout, r.stderr[-2000:]
+    mods = set(r.stdout.split()[1:])
+    for name in ("cli", "__main__", "utils.image_io", "tools.reformat",
+                 "tools.perf_e12", "tools.perf_pixels",
+                 "examples.video_pipeline"):
+        assert f"gpujpeg_tpu_torch.{name}" in mods, name
+
+
+def test_package_data_carries_every_kernel_include():
+    """A non-editable install ships what ``pyproject.toml``'s package
+    data lists: every ``#include "..."`` of the kernels' sources must
+    match one of its globs, or the first nvcc build fails."""
+    import fnmatch
+    import glob
+    import re
+    import tomllib
+    with open(os.path.join(REPO, "pyproject.toml"), "rb") as f:
+        data = tomllib.load(f)["tool"]["setuptools"]["package-data"]
+    globs = data["gpujpeg_tpu_torch"]
+    pkg = os.path.join(REPO, "gpujpeg_tpu_torch")
+    sources = sorted(glob.glob(os.path.join(pkg, "csrc", "*.cu")))
+    assert sources
+    needed = set()
+    for src in sources:
+        needed.add(os.path.relpath(src, pkg))
+        with open(src) as f:
+            for inc in re.findall(r'^\s*#include\s+"([^"]+)"', f.read(),
+                                  re.M):
+                path = os.path.join(os.path.dirname(src), inc)
+                assert os.path.exists(path), (src, inc)
+                needed.add(os.path.relpath(path, pkg))
+    assert any(n.endswith(".cuh") for n in needed)
+    missing = [n for n in sorted(needed)
+               if not any(fnmatch.fnmatch(n, g) for g in globs)]
+    assert not missing, missing
 
 
 @pytest.mark.parametrize("ri", [0, 2, 32])
