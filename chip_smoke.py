@@ -141,12 +141,40 @@ the first failure:
    ``-d`` back equals ``Decoder.decode``, a Y4M of 8 HD frames to a
    ``%d`` pattern (through ``encode_batch``) gives the per-frame
    encodes' files; (vi) ``examples/device_array_roundtrip.py`` and
-   ``examples/video_pipeline.py`` at their defaults on ``cuda``.
+   ``examples/video_pipeline.py`` at their defaults on ``cuda``;
+15. the parallel layer (``gpujpeg_tpu_torch.parallel``), each run with
+   the route's launch counts set to 0 before it and each kernel held to
+   one launch a band: (i) ``ShardedEncoder`` over a (1, 4) mesh of
+   cuda:0 on the main path at 8K (restart interval
+   ``choose_restart_interval`` over 4 bands, 32: 4,050 segments a band
+   and scan, so every band's markers are the frame's) and over a (1, 2)
+   mesh on (a) (1,080 rows a band of 4 would not be whole MCU rows), each
+   stream equal to ``Encoder.encode``'s; (ii) ``encode_batch`` of 4
+   main-path frames, rolled from one image, over a (2, 2) mesh of cuda:0,
+   each equal to ``encode`` of its frame; (iii) ``ShardedDecoder`` of
+   (i)'s streams and ``decode_batch`` of (ii)'s over 4 bands, each frame
+   equal to ``Decoder.decode``'s; the main path's sharded encode and
+   decode timed beside ``Encoder.encode`` and ``Decoder.decode`` (host
+   clock, median of 3); (iv) a D1 made to fail in one band raises from
+   ``decode`` and ``decode_batch``, a corrupt stream raises
+   ``JpegParseError`` from ``decode_batch``, and a decode after them
+   succeeds; (v) two ranks in subprocesses (``chip_smoke.py --rank``)
+   sharing cuda:0 over gloo: ``MultiHostEncoder`` of one 8K frame a rank,
+   ``MultiHostSingleImageEncoder`` of one 8K image over 2 bands a rank,
+   ``MultiHostDecoder`` of each rank's stream, each equal to the
+   single-process calls here, both ranks' single-image streams equal,
+   each rank loading the built kernel library and neither rebuilding it;
+   (vi) ``examples/sharded_encode.py`` and ``examples/multihost_video.py``
+   at their defaults on ``cuda`` (with (v)'s ranks, four processes at
+   once); (vii) with two or more cards, (i) and (iii) again over distinct
+   cards, else a line that says only meshes repeating cuda:0 ran.
 
 The line before the last is a JSON object with every kernel's numbers
-(its time, plain time, bound and launches on its path), the line before
-it phase 14's batch rows; the last line is ``{"ok": true, "device":
-{...}}``.
+(its time, plain time, bound and launches on its path, and
+``sharded_launches``: its launches in each of phase 15's runs), the line
+before it phase 14's batch rows; the last line is ``{"ok": true,
+"device": {...}}``. ``chip_smoke.py --rank R PORT DIR LIB`` is phase 15
+(v)'s rank process and is not run by hand.
 """
 from __future__ import annotations
 
@@ -1975,8 +2003,6 @@ def copy_edges_check(dev) -> int:
     ``copy_grid``."""
     from gpujpeg_tpu_torch import _build
     from gpujpeg_tpu_torch.tools import perf_stage1
-    lib = _build.load_kernels()
-    stream = torch.cuda.current_stream(dev).cuda_stream
     n_max = max(COPY_EDGE_LENGTHS)
     src = torch.from_numpy(np.random.default_rng(3).integers(
         0, 256, n_max + 16, dtype=np.uint8)).to(dev)
@@ -1993,9 +2019,8 @@ def copy_edges_check(dev) -> int:
                 want = dst.clone()
                 d0 = COPY_GUARD + do
                 want[d0:d0 + length] = src[so:so + length]
-                _build.check_launch("gj_copy_bytes", lib.gj_copy_bytes(
-                    src.data_ptr() + so, dst.data_ptr() + d0, length,
-                    stream))
+                _build.launch("gj_copy_bytes", dev, src.data_ptr() + so,
+                              dst.data_ptr() + d0, length)
                 if not torch.equal(dst, want):
                     fail(f"(iv): copy_bytes of {length} bytes from offset "
                          f"{so} to offset {do} is not byte-exact or writes "
@@ -2641,6 +2666,372 @@ def phase_batch(gj, img: np.ndarray, data: bytes, card: str) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the parallel layer
+# ---------------------------------------------------------------------------
+
+#: (v)'s ranks: each takes this many bands of cuda:0 for its own frames
+#: and for its share of the single image
+RANK_BANDS = 2
+
+
+def sharded_count(kernels, fn, n: int, what: str) -> dict:
+    """``fn()`` with the kernels' counts set to 0; fail unless each
+    launched ``n`` times (once a band); the counts."""
+    for k in kernels:
+        k.launches = 0
+    fn()
+    launches = {k.__name__: k.launches for k in kernels}
+    if any(v != n for v in launches.values()):
+        fail(f"phase 15 {what}: launches {launches}, expected {n} each "
+             "(one a band)")
+    return launches
+
+
+def median_ms(fn) -> float:
+    """Host-clock median of 3 runs of ``fn()``, each ended by a sync."""
+    return float(np.median([host_ms(fn) for _ in range(3)]))
+
+
+def sharded_pair(gj, par, what: str, mesh, raw, params, image, want: bytes,
+                 ekern, dkern, card: str, timed: bool) -> tuple[dict, bytes]:
+    """``ShardedEncoder`` of one frame and ``ShardedDecoder`` of its stream
+    over ``mesh``: the stream equal to ``want`` (``Encoder.encode`` on the
+    card at the same interval), the frame equal to ``Decoder.decode``'s,
+    each kernel once a band; with ``timed``, both beside the
+    single-device calls (host clock, median of 3). Returns the launch
+    counts (route name -> counts) and the stream."""
+    n = mesh.shape["seg"]
+    enc = par.ShardedEncoder(mesh)
+    got = []
+    e_launch = sharded_count(
+        ekern, lambda: got.append(enc.encode(raw, params, image)), n,
+        f"{what} encode")
+    if got[0] != want:
+        fail(f"phase 15 {what}: the sharded stream differs from "
+             "Encoder.encode's at the same interval")
+    dec = par.ShardedDecoder(mesh)
+    single = gj.Decoder(backend="torch", device=mesh.devices[0, 0])
+    ref_raw, ref_oi = single.decode(want)
+    outs = []
+    d_launch = sharded_count(
+        dkern, lambda: outs.append(dec.decode(want)), n, f"{what} decode")
+    raw_s, oi = outs[0]
+    if not (np.array_equal(raw_s, ref_raw) and oi == ref_oi):
+        fail(f"phase 15 {what}: the sharded decode differs from "
+             "Decoder.decode's")
+    line = (f"phase 15 {what}: {card}: {n} bands on "
+            f"{', '.join(str(d) for d in mesh.devices[0])}: the stream "
+            f"({len(want)} bytes) equals Encoder.encode's, the frame "
+            f"({gj.PixelFormat(oi.pixel_format).name}) Decoder.decode's; "
+            f"launches {e_launch}, {d_launch}")
+    if timed:
+        enc1 = gj.Encoder(backend="torch", device=mesh.devices[0, 0])
+        enc1.encode(raw, params, image)
+        t = [median_ms(lambda: enc.encode(raw, params, image)),
+             median_ms(lambda: enc1.encode(raw, params, image)),
+             median_ms(lambda: dec.decode(want)),
+             median_ms(lambda: single.decode(want))]
+        line += (f"; sharded encode {t[0]:.3f} ms against Encoder.encode "
+                 f"{t[1]:.3f}, sharded decode {t[2]:.3f} against "
+                 f"Decoder.decode {t[3]:.3f} (host clock, median of 3)")
+    print(line, flush=True)
+    return {"encode": e_launch, "decode": d_launch}, got[0]
+
+
+def rank_main(rank: int, port: str, outdir: str, so: str) -> None:
+    """One of phase 15 (v)'s two ranks (``chip_smoke.py --rank R PORT
+    OUTDIR LIB``), sharing cuda:0 with the other over gloo: its own 8K
+    frame by ``MultiHostEncoder`` (``RANK_BANDS`` bands), its share of
+    the single 8K image by ``MultiHostSingleImageEncoder``, its streams
+    decoded by ``MultiHostDecoder``; the streams into ``OUTDIR``, the
+    rest as one JSON line."""
+    import hashlib
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import gpujpeg_tpu_torch as gj
+    from gpujpeg_tpu_torch import _build
+    from gpujpeg_tpu_torch.ops import dct, decode, entropy
+    from gpujpeg_tpu_torch.parallel import (
+        Mesh, MultiHostDecoder, MultiHostEncoder,
+        MultiHostSingleImageEncoder, global_mesh, init_distributed)
+
+    existed = os.path.exists(so)
+    _build.load_kernels()
+    report = {"rank": rank, "library_existed": existed,
+              "library": _build.library_path()}
+    init_distributed(f"localhost:{port}", num_processes=2, process_id=rank)
+    params, image, _ = setup(gj, H8K, W8K)
+    img = make_image(H8K, W8K)
+    local = [torch.device("cuda", 0)] * RANK_BANDS
+    ekern = (dct.fdct_quant, entropy.huffman_blocks, entropy.merge_stuff)
+    dkern = (decode.huffman_decode, dct.idct_rgb)
+
+    def counted(kernels, fn):
+        for k in kernels:
+            k.launches = 0
+        out = fn()
+        return out, {k.__name__: k.launches for k in kernels}
+
+    enc = MultiHostEncoder(global_mesh(local_devices=local))
+    streams, report["frames_launches"] = counted(ekern, lambda: (
+        enc.encode_my_frames([np.roll(img, 16 * rank, axis=1)], params,
+                             image)))
+    single = MultiHostSingleImageEncoder(Mesh([local]))
+    data, report["single_launches"] = counted(
+        ekern, lambda: single.encode(img, params, image))
+    outs, report["decode_launches"] = counted(
+        dkern, lambda: MultiHostDecoder(Mesh([local])).decode_my_frames(
+            streams))
+    for name, blob in (("frame", streams[0]), ("single", data)):
+        with open(os.path.join(outdir, f"{name}_{rank}.jpg"), "wb") as f:
+            f.write(blob)
+    report["decoded_sha256"] = hashlib.sha256(outs[0][0].tobytes()).hexdigest()
+    report["world"] = enc.mesh.shape
+    import torch.distributed as dist
+    dist.destroy_process_group()
+    print(json.dumps(report), flush=True)
+
+
+def run_ranks_and_examples(card: str) -> tuple[list, list, str]:
+    """(v)'s two ranks and (vi)'s two examples, in four subprocesses
+    started together; each must exit 0 within its time. Returns the
+    ranks' reports, the examples' outputs and the temporary directory
+    with the ranks' streams (the caller removes it)."""
+    import socket
+    import tempfile
+    from gpujpeg_tpu_torch import _build
+    root = os.path.dirname(os.path.abspath(__file__))
+    so = _build.library_path()
+    mtime = os.stat(so).st_mtime_ns
+    tmp = tempfile.mkdtemp()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = str(sock.getsockname()[1])
+    cmds = [[sys.executable, os.path.abspath(__file__), "--rank", str(r),
+             port, tmp, so] for r in range(2)]
+    cmds += [[sys.executable, "-m", f"gpujpeg_tpu_torch.examples.{name}"]
+             for name in ("sharded_encode", "multihost_video")]
+    procs = [subprocess.Popen(c, cwd=root, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    try:
+        outs = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for c, p, (out, err) in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            fail(f"phase 15: {' '.join(c[1:3])} exited {p.returncode}: "
+                 f"{err[-2000:]}")
+    if os.stat(so).st_mtime_ns != mtime:
+        fail("phase 15 (v): a rank rebuilt the kernel library")
+    reports = [json.loads(out.strip().splitlines()[-1])
+               for out, _ in outs[:2]]
+    return reports, [out for out, _ in outs[2:]], tmp
+
+
+def phase_parallel(gj, img: np.ndarray, data: bytes, card: str) -> dict:
+    """Phase 15: band- and frame-sharded encode and decode on meshes that
+    repeat cuda:0 (and over distinct cards where there are two or more),
+    a failing band, two ranks sharing the card over gloo and the two
+    examples; returns the sharded launch counts by kernel row name."""
+    import hashlib
+    import shutil
+
+    import gpujpeg_tpu_torch.parallel as par
+    from gpujpeg_tpu_torch.ops import dct, decode, entropy, pipeline
+    from gpujpeg_tpu_torch.ops import preprocess as pre
+    from gpujpeg_tpu_torch.stream.reader import JpegParseError
+
+    t_phase = time.perf_counter()
+    cuda0 = torch.device("cuda", 0)
+    params, image, _ = setup(gj, H8K, W8K)
+    ri = par.choose_restart_interval(params, image, 4)
+    if ri != params.restart_interval:
+        fail(f"phase 15: choose_restart_interval over 4 bands gives {ri}, "
+             f"expected {params.restart_interval}")
+    raw = img.reshape(-1)
+    e1 = (dct.fdct_quant, entropy.huffman_blocks, entropy.merge_stuff)
+    e0 = (pre.preprocess_planes, dct.fdct_quant_planes,
+          entropy.huffman_blocks, entropy.merge_stuff)
+    d2 = (decode.huffman_decode, dct.idct_rgb)
+    d3 = (decode.huffman_decode, dct.idct_planes, pre.postprocess_planes)
+    params_a, image_a = plan_a(gj)
+    raw_a = make_raw(gj, img, image_a)
+    data_a = gj.Encoder(backend="torch", device="cuda").encode(
+        raw_a, params_a, image_a)
+
+    def rows_of(label, counts, names):
+        """Route counts -> {kernel row name: {label: launches}}."""
+        out = {}
+        for k, v in counts.items():
+            out.setdefault(names.get(k, k), {})[label] = v
+        return out
+
+    sharded: dict = {}
+
+    def add(more):
+        for k, v in more.items():
+            sharded.setdefault(k, {}).update(v)
+
+    # (i) and (iii): one frame over bands of cuda:0
+    mesh4 = par.Mesh([[cuda0] * 4])
+    mesh2 = par.Mesh([[cuda0] * 2])
+    main, _ = sharded_pair(gj, par, "(i)/(iii) main path", mesh4, raw,
+                           params, image, data, e1, d2, card, True)
+    a_counts, _ = sharded_pair(gj, par, "(i)/(iii) (a)", mesh2, raw_a,
+                               params_a, image_a, data_a, e0, d3, card,
+                               False)
+    add(rows_of("main path 1x4", {**main["encode"], **main["decode"]}, {}))
+    add(rows_of("(a) 1x2", a_counts["encode"], {}))
+    add(rows_of("(a) 1x2", a_counts["decode"],
+                {"huffman_decode": "huffman_decode[K4 regime (a)]"}))
+
+    # (ii) encode_batch of 4 frames over (2, 2), (iii) its decode_batch
+    frames = [np.roll(img, 16 * k, axis=1).reshape(-1) for k in range(4)]
+    mesh22 = par.Mesh([[cuda0] * 2, [cuda0] * 2])
+    enc = gj.Encoder(backend="torch", device="cuda")
+    want = [enc.encode(f, params, image) for f in frames]
+    got = []
+    b_launch = sharded_count(e1, lambda: got.extend(par.ShardedEncoder(
+        mesh22).encode_batch(frames, params, image)), 8,
+        "(ii) encode_batch")
+    bad = [i for i in range(4) if got[i] != want[i]]
+    if bad:
+        fail(f"phase 15 (ii): streams {bad} of encode_batch differ from "
+             "encode of the same frames")
+    dec1 = gj.Decoder(backend="torch", device="cuda")
+    want_raw = [dec1.decode(d)[0] for d in want]
+    sdec = par.ShardedDecoder(mesh4)
+    outs = []
+    bd_launch = sharded_count(d2, lambda: outs.extend(
+        sdec.decode_batch(want)), 16, "(iii) decode_batch")
+    bad = [i for i in range(4) if not np.array_equal(outs[i][0],
+                                                     want_raw[i])]
+    if bad:
+        fail(f"phase 15 (iii): frames {bad} of decode_batch differ from "
+             "Decoder.decode of the same streams")
+    print(f"phase 15 (ii)/(iii): {card}: encode_batch of 4 main-path frames "
+          f"over a (2, 2) mesh of cuda:0 equals encode of each frame, "
+          f"launches {b_launch}; decode_batch of those streams over 4 "
+          f"bands equals Decoder.decode of each, launches {bd_launch}",
+          flush=True)
+    add(rows_of("batch 2x2 (4 frames)", b_launch, {}))
+    add(rows_of("decode_batch 1x4 (4 frames)", bd_launch, {}))
+    del outs, want_raw, frames
+
+    # (iv) a failing band raises from decode and decode_batch
+    real = pipeline.huffman_decode
+    calls = []
+
+    def failing(*a, **k):
+        calls.append(1)
+        if len(calls) == 3:
+            raise RuntimeError("gj_huffman_decode: CUDA launch failed "
+                               "(injected into band 2)")
+        return real(*a, **k)
+
+    pipeline.huffman_decode = failing
+    try:
+        for what, call in (("decode", lambda: sdec.decode(data)),
+                           ("decode_batch",
+                            lambda: sdec.decode_batch([want[1], data]))):
+            calls.clear()
+            try:
+                call()
+                fail(f"phase 15 (iv): a failing band did not raise from "
+                     f"{what}")
+            except RuntimeError as e:
+                if "injected" not in str(e):
+                    raise
+    finally:
+        pipeline.huffman_decode = real
+    try:
+        sdec.decode_batch([data, b"\xff\xd8garbage"])
+        fail("phase 15 (iv): a corrupt stream in a batch did not raise")
+    except JpegParseError:
+        pass
+    after, _ = sdec.decode(want[1])
+    if not np.array_equal(after, dec1.decode(want[1])[0]):
+        fail("phase 15 (iv): the decode after the failures differs")
+    print("phase 15 (iv): a D1 failing in band 2 raised from decode and "
+          "from decode_batch, a corrupt stream raised JpegParseError from "
+          "decode_batch, and a decode after them equals Decoder.decode",
+          flush=True)
+    del sdec, after
+    torch.cuda.empty_cache()
+
+    # (vii) distinct cards, where there are two or more
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        n = 4 if n_cards >= 4 else 2
+        cards = par.Mesh([[torch.device("cuda", i) for i in range(n)]])
+        sharded_pair(gj, par, f"(vii) main path over {n} cards", cards, raw,
+                     params, image, data, e1, d2, card, True)
+        sharded_pair(gj, par, "(vii) (a) over 2 cards",
+                     par.Mesh([[torch.device("cuda", i) for i in range(2)]]),
+                     raw_a, params_a, image_a, data_a, e0, d3, card, False)
+    else:
+        print(f"phase 15 (vii): {n_cards} CUDA device: only meshes that "
+              "repeat cuda:0 ran; no two distinct cards were tried",
+              flush=True)
+
+    # (v) two ranks sharing cuda:0 over gloo, (vi) the examples
+    reports, ex_outs, tmp = run_ranks_and_examples(card)
+    try:
+        for r, rep in enumerate(reports):
+            if not rep["library_existed"]:
+                fail(f"phase 15 (v): rank {r} found no built library")
+            with open(os.path.join(tmp, f"frame_{r}.jpg"), "rb") as f:
+                frame_stream = f.read()
+            with open(os.path.join(tmp, f"single_{r}.jpg"), "rb") as f:
+                single_stream = f.read()
+            if frame_stream != want[r]:
+                fail(f"phase 15 (v): rank {r}'s frame stream differs from "
+                     "Encoder.encode of its frame")
+            if single_stream != data:
+                fail(f"phase 15 (v): rank {r}'s single-image stream "
+                     "differs from Encoder.encode of the image")
+            sha = hashlib.sha256(dec1.decode(frame_stream)[0].tobytes())
+            if rep["decoded_sha256"] != sha.hexdigest():
+                fail(f"phase 15 (v): rank {r}'s decode differs from "
+                     "Decoder.decode of its stream")
+            for key in ("frames_launches", "single_launches",
+                        "decode_launches"):
+                if set(rep[key].values()) != {RANK_BANDS}:
+                    fail(f"phase 15 (v): rank {r} {key} {rep[key]}, "
+                         f"expected {RANK_BANDS} each (one a band)")
+    finally:
+        shutil.rmtree(tmp)
+    print(f"phase 15 (v): {card}: two ranks on cuda:0 over gloo (global "
+          f"mesh {reports[0]['world']}, {RANK_BANDS} bands of cuda:0 a "
+          f"rank): each rank's 8K frame stream "
+          f"equals Encoder.encode of its frame, both ranks' single-image "
+          f"streams ({2 * RANK_BANDS} bands) equal Encoder.encode of the "
+          f"image, their decodes equal Decoder.decode; launches rank 0 "
+          f"{reports[0]['frames_launches']}, "
+          f"{reports[0]['single_launches']}, "
+          f"{reports[0]['decode_launches']}; both loaded "
+          f"{os.path.basename(reports[0]['library'])} and neither rebuilt "
+          "it", flush=True)
+    ex_checks = (("sharded_encode", "equal to one device's stream: True"),
+                 ("multihost_video", "equal to one device's streams: True"))
+    for (name, needle), out in zip(ex_checks, ex_outs):
+        if needle not in out:
+            fail(f"phase 15 (vi): examples/{name}.py: {out[-2000:]}")
+        print(f"phase 15 (vi): {card}: examples/{name}.py: "
+              + " | ".join(out.strip().splitlines()), flush=True)
+    for key, label in (("frames_launches", "(v) rank 0 frame"),
+                       ("single_launches", "(v) rank 0 single image"),
+                       ("decode_launches", "(v) rank 0 decode")):
+        add(rows_of(label, reports[0][key], {}))
+    torch.cuda.empty_cache()
+    print(f"phase 15: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return sharded
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a "
@@ -2706,8 +3097,10 @@ def main() -> None:
     rows += srows
     launches.update(slaunches)
     batch_rows = phase_batch(gj, img, data, card)
+    sharded = phase_parallel(gj, img, data, card)
     for r in rows:
         r["launches"] = launches[r["name"]]
+        r["sharded_launches"] = sharded.get(r["name"], {})
     print(json.dumps({"batch": batch_rows}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -2716,4 +3109,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--rank"]:
+        rank_main(int(sys.argv[2]), *sys.argv[3:6])
+    else:
+        main()

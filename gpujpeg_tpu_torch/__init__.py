@@ -8,6 +8,8 @@ device="cuda")``, ``Decoder(backend="torch", device="cuda")``) through
 hand-written CUDA kernels for Hopper (``csrc/``), built with ``nvcc`` at
 first use; on ``device="cpu"`` the same paths run the kernels' plain
 torch versions. ``backend="golden"`` is the host NumPy/C++ coder.
+``parallel`` shards encode and decode over several devices (bands of
+one image, frames of a batch) and over processes (``torch.distributed``).
 
 Importing the package compiles nothing and never imports JAX.
 """
@@ -15,6 +17,7 @@ from __future__ import annotations
 
 from .models.decoder import Decoder
 from .models.encoder import Encoder
+from . import parallel
 from .params import ImageParameters, Parameters, suggest_restart_interval
 from .stream.reader import JpegParseError, get_image_info, read_image
 from .types import (

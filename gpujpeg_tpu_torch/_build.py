@@ -10,8 +10,11 @@ per source, all started together, then one link (a few seconds in
 all); nothing is compiled at import.
 
 Every C entry launches on the stream it is given and returns
-``cudaGetLastError()`` of its launch; the wrappers in ``ops/`` raise on a
-non-zero return.
+``cudaGetLastError()`` of its launch. The wrappers in ``ops/`` (and the
+tools) call an entry through :func:`launch`, which makes the tensors'
+device current for the call (the entries that size their grid by
+``cudaGetDevice`` or set a kernel attribute act on the current device),
+passes that device's current stream and raises on a non-zero return.
 """
 from __future__ import annotations
 
@@ -23,6 +26,8 @@ import os
 import shutil
 import subprocess
 from concurrent.futures import ThreadPoolExecutor
+
+import torch
 
 from .runtime import kernel_build_dir, verify_private_dir
 
@@ -134,3 +139,25 @@ def check_launch(name: str, err: int) -> None:
     """Raise if a C entry reported a launch error."""
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+
+
+def launch(name: str, device, *args, lib: ctypes.CDLL | None = None) -> None:
+    """Call C entry ``name`` of ``lib`` (the kernel library by default)
+    with ``args`` and the current stream of ``device``, a CUDA device,
+    with ``device`` made current for the call so that the entry's device
+    queries and attributes act on the card that holds the operands; raise
+    if the entry reports a launch error."""
+    lib = load_kernels() if lib is None else lib
+    device = torch.device(device)
+    with torch.cuda.device(device):
+        err = getattr(lib, name)(
+            *args, torch.cuda.current_stream(device).cuda_stream)
+    check_launch(name, err)
+
+
+def query(name: str, *args, lib: ctypes.CDLL | None = None) -> None:
+    """Call C entry ``name`` that launches nothing (a host-side query such
+    as ``gj_copy_bytes_grid``) with ``args``; raise on a non-zero
+    return."""
+    lib = load_kernels() if lib is None else lib
+    check_launch(name, getattr(lib, name)(*args))

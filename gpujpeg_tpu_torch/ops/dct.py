@@ -111,12 +111,10 @@ def fdct_quant(rgb: torch.Tensor, dct: torch.Tensor, bias: torch.Tensor,
     H, W, _ = rgb.shape
     out = torch.empty((3 * (H // 8) * (W // 8), 64), dtype=torch.int32,
                       device=rgb.device)
-    lib = _build.load_kernels()
-    err = lib.gj_fdct_quant(
-        rgb.data_ptr(), H, W, bias.data_ptr(),
+    _build.launch(
+        "gj_fdct_quant", rgb.device, rgb.data_ptr(), H, W, bias.data_ptr(),
         qdiv.data_ptr(), xf.data_ptr(), int(bool(interleaved)),
-        out.data_ptr(), torch.cuda.current_stream(rgb.device).cuda_stream)
-    _build.check_launch("gj_fdct_quant", err)
+        out.data_ptr())
     fdct_quant.launches += 1
     return out
 
@@ -180,12 +178,10 @@ def fdct_quant_planes(planes: torch.Tensor, dct: torch.Tensor,
         raise ValueError(f"unsupported device {planes.device}")
     NB = block_plane_idx.shape[0]
     out = torch.empty((NB, 64), dtype=torch.int32, device=planes.device)
-    lib = _build.load_kernels()
-    err = lib.gj_fdct_quant_planes(
-        planes.data_ptr(), block_plane_idx.data_ptr(), NB, blk.data_ptr(),
-        blk.shape[0], qdiv.data_ptr(), bias.data_ptr(), out.data_ptr(),
-        torch.cuda.current_stream(planes.device).cuda_stream)
-    _build.check_launch("gj_fdct_quant_planes", err)
+    _build.launch(
+        "gj_fdct_quant_planes", planes.device, planes.data_ptr(),
+        block_plane_idx.data_ptr(), NB, blk.data_ptr(), blk.shape[0],
+        qdiv.data_ptr(), bias.data_ptr(), out.data_ptr())
     fdct_quant_planes.launches += 1
     return out
 
@@ -264,12 +260,10 @@ def idct_rgb(coeff: torch.Tensor, quant: torch.Tensor, q_of: torch.Tensor,
     if coeff.data_ptr() % 16:
         raise ValueError("coeff must start on a 16-byte boundary")
     out = torch.empty((H, W, 3), dtype=torch.uint8, device=coeff.device)
-    lib = _build.load_kernels()
-    err = lib.gj_idct_rgb(
-        coeff.data_ptr(), H, W, quant.data_ptr(), quant.shape[0],
-        q_of.data_ptr(), xf.data_ptr(), int(bool(interleaved)),
-        out.data_ptr(), torch.cuda.current_stream(coeff.device).cuda_stream)
-    _build.check_launch("gj_idct_rgb", err)
+    _build.launch(
+        "gj_idct_rgb", coeff.device, coeff.data_ptr(), H, W,
+        quant.data_ptr(), quant.shape[0], q_of.data_ptr(), xf.data_ptr(),
+        int(bool(interleaved)), out.data_ptr())
     idct_rgb.launches += 1
     return out
 
@@ -344,13 +338,10 @@ def idct_planes(coeff: torch.Tensor, quant: torch.Tensor,
     if coeff.data_ptr() % 16:
         raise ValueError("coeff must start on a 16-byte boundary")
     out = torch.empty((total,), dtype=torch.uint8, device=coeff.device)
-    lib = _build.load_kernels()
-    err = lib.gj_idct_planes(
-        coeff.data_ptr(), coeff.shape[0], quant.data_ptr(), quant.shape[0],
-        q_of.data_ptr(), blk.data_ptr(), blk.shape[0],
-        block_plane_idx.data_ptr(), out.data_ptr(),
-        torch.cuda.current_stream(coeff.device).cuda_stream)
-    _build.check_launch("gj_idct_planes", err)
+    _build.launch(
+        "gj_idct_planes", coeff.device, coeff.data_ptr(), coeff.shape[0],
+        quant.data_ptr(), quant.shape[0], q_of.data_ptr(), blk.data_ptr(),
+        blk.shape[0], block_plane_idx.data_ptr(), out.data_ptr())
     idct_planes.launches += 1
     return out
 

@@ -414,14 +414,12 @@ def huffman_decode(rows: torch.Tensor, seg_start: torch.Tensor,
     S, wcap = rows.shape
     NB = block_comp.shape[0]
     out = torch.empty((NB, 64), dtype=torch.int32, device=rows.device)
-    lib = _build.load_kernels()
-    err = lib.gj_huffman_decode(
-        rows.data_ptr(), wcap, seg_start.data_ptr(), seg_count.data_ptr(), S,
-        block_comp.data_ptr(), wide.data_ptr(), maxcode.data_ptr(),
-        delta.data_ptr(), huffval.data_ptr(), dc_slot.data_ptr(),
-        ac_slot.data_ptr(), wide.shape[0], out.data_ptr(),
-        torch.cuda.current_stream(rows.device).cuda_stream)
-    _build.check_launch("gj_huffman_decode", err)
+    _build.launch(
+        "gj_huffman_decode", rows.device, rows.data_ptr(), wcap,
+        seg_start.data_ptr(), seg_count.data_ptr(), S, block_comp.data_ptr(),
+        wide.data_ptr(), maxcode.data_ptr(), delta.data_ptr(),
+        huffval.data_ptr(), dc_slot.data_ptr(), ac_slot.data_ptr(),
+        wide.shape[0], out.data_ptr())
     huffman_decode.launches += 1
     return out
 

@@ -188,13 +188,10 @@ def huffman_blocks(coeff: torch.Tensor, dc_pred: torch.Tensor,
     words = torch.empty((NB, BLOCK_CAP_WORDS), dtype=torch.int32,
                         device=coeff.device)
     bits = torch.empty((NB,), dtype=torch.int32, device=coeff.device)
-    lib = _build.load_kernels()
-    err = lib.gj_huffman_blocks(
-        coeff.data_ptr(), NB, dc_pred.data_ptr(), block_cls.data_ptr(),
-        ac512.data_ptr(), dc64.data_ptr(), BLOCK_CAP_WORDS,
-        words.data_ptr(), bits.data_ptr(),
-        torch.cuda.current_stream(coeff.device).cuda_stream)
-    _build.check_launch("gj_huffman_blocks", err)
+    _build.launch(
+        "gj_huffman_blocks", coeff.device, coeff.data_ptr(), NB,
+        dc_pred.data_ptr(), block_cls.data_ptr(), ac512.data_ptr(),
+        dc64.data_ptr(), BLOCK_CAP_WORDS, words.data_ptr(), bits.data_ptr())
     huffman_blocks.launches += 1
     return words, bits
 
@@ -534,14 +531,12 @@ def dct_huffman_blocks(blocks: torch.Tensor, diff: torch.Tensor,
     words = torch.empty((NB, cap_words), dtype=torch.int32,
                         device=blocks.device)
     bits = torch.empty((NB,), dtype=torch.int32, device=blocks.device)
-    lib = _build.load_kernels()
-    err = lib.gj_dct_huffman_blocks(
-        blocks.data_ptr(), NB, diff.data_ptr(), block_cls.data_ptr(),
-        valid.data_ptr(), qsel.data_ptr(), qdiv.data_ptr(),
-        bias.data_ptr(), ac512.data_ptr(), dc64.data_ptr(), cap_words,
-        STOP_MODES.index(stop), words.data_ptr(), bits.data_ptr(),
-        torch.cuda.current_stream(blocks.device).cuda_stream)
-    _build.check_launch("gj_dct_huffman_blocks", err)
+    _build.launch(
+        "gj_dct_huffman_blocks", blocks.device, blocks.data_ptr(), NB,
+        diff.data_ptr(), block_cls.data_ptr(), valid.data_ptr(),
+        qsel.data_ptr(), qdiv.data_ptr(), bias.data_ptr(), ac512.data_ptr(),
+        dc64.data_ptr(), cap_words, STOP_MODES.index(stop),
+        words.data_ptr(), bits.data_ptr())
     dct_huffman_blocks.launches[stop] += 1
     return words, bits
 
@@ -715,14 +710,11 @@ def merge_stuff(words: torch.Tensor, bits: torch.Tensor, seg_start: torch.Tensor
     out = torch.empty((S, cap_out), dtype=torch.uint8, device=dev)
     out_len, seg_bits, n_ff = (
         torch.empty((S,), dtype=torch.int32, device=dev) for _ in range(3))
-    lib = _build.load_kernels()
-    err = lib.gj_merge_stuff(
-        words.data_ptr(), bits.data_ptr(), BLOCK_CAP_WORDS,
-        seg_start.data_ptr(), seg_count.data_ptr(), rst.data_ptr(),
-        has_rst.data_ptr(), S, cap_out, out.data_ptr(), out_len.data_ptr(),
-        seg_bits.data_ptr(), n_ff.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check_launch("gj_merge_stuff", err)
+    _build.launch(
+        "gj_merge_stuff", dev, words.data_ptr(), bits.data_ptr(),
+        BLOCK_CAP_WORDS, seg_start.data_ptr(), seg_count.data_ptr(),
+        rst.data_ptr(), has_rst.data_ptr(), S, cap_out, out.data_ptr(),
+        out_len.data_ptr(), seg_bits.data_ptr(), n_ff.data_ptr())
     merge_stuff.launches += 1
     return out, out_len, seg_bits, n_ff
 

@@ -127,17 +127,18 @@ from .rgbpack import (
 
 class StageClock:
     """Stage boundaries of one encode or decode with perf stats on: CUDA
-    events recorded on the current stream (on the card), host clock
-    readings (on the CPU)."""
+    events recorded on the current stream of the coder's device (on the
+    card), host clock readings (on the CPU)."""
 
     def __init__(self, device: torch.device):
+        self.device = device
         self.cuda = device.type == "cuda"
         self.marks: list = []
 
     def mark(self) -> None:
         if self.cuda:
             ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
+            ev.record(torch.cuda.current_stream(self.device))
             self.marks.append(ev)
         else:
             self.marks.append(time.perf_counter())
@@ -255,13 +256,16 @@ class _EncContext:
             return upload_rgb(raw, self.plan, self.device, staging)
         return upload_raw(raw, self.plan.image, self.device, staging)
 
-    def run(self, x: torch.Tensor, clock: StageClock | None = None):
+    def run(self, x: torch.Tensor, clock: StageClock | None = None,
+            rst: torch.Tensor | None = None,
+            has_rst: torch.Tensor | None = None):
         """:meth:`upload`'s tensor -> (out, out_len, seg_bits, n_ff) of
         :func:`entropy.merge_stuff`; ``clock`` is marked after the
-        preprocessor, the DCT and the Huffman stage."""
+        preprocessor, the DCT and the Huffman stage. ``rst`` and
+        ``has_rst`` (see :meth:`entropy`) replace the plan's markers."""
         coeff = self.coefficients(x, clock)
         _mark(clock)
-        out = self.entropy(coeff)
+        out = self.entropy(coeff, rst, has_rst)
         _mark(clock)
         return out
 
@@ -288,13 +292,22 @@ class _EncContext:
         return fdct_quant_planes(planes, t.dct, t.bias, self.qdiv, g.blk,
                                  g.block_plane_idx)
 
-    def entropy(self, coeff: torch.Tensor):
-        """Scan-order coefficients -> E2 -> E3."""
+    def entropy(self, coeff: torch.Tensor,
+                rst: torch.Tensor | None = None,
+                has_rst: torch.Tensor | None = None):
+        """Scan-order coefficients -> E2 -> E3. ``rst`` and ``has_rst``,
+        (S,) int32 on the context's device, give each segment's marker
+        and whether it carries one in place of the plan's own: a band of
+        a sharded frame numbers its markers in the whole frame's scans
+        (``parallel.sharded``), on a context it shares with every band of
+        its geometry and device."""
         t, g = self.tables, self.geo
         words, bits = huffman_blocks(coeff, g.dc_pred, g.block_cls,
                                      t.ac512, t.dc64)
-        return merge_stuff(words, bits, g.seg_start, g.seg_count, g.rst,
-                           g.has_rst, g.cap_out)
+        return merge_stuff(words, bits, g.seg_start, g.seg_count,
+                           g.rst if rst is None else rst,
+                           g.has_rst if has_rst is None else has_rst,
+                           g.cap_out)
 
 
 def _enc_context(cache: dict, plan: CoderPlan, quant_zz: dict, huff: dict,
@@ -487,7 +500,10 @@ class _DecContext:
 
 
 def _dec_context(cache: dict, plan: CoderPlan, info, dc_by_comp, ac_by_comp,
-                 out_image, device: torch.device) -> _DecContext:
+                 out_image, device: torch.device,
+                 limit: int = DEC_CONTEXTS) -> _DecContext:
+    """The cached decode context of (plan, output, tables, device); at
+    most ``limit`` are kept, the oldest dropped first."""
     uniq, dc_slot, ac_slot = table_slots(plan, dc_by_comp, ac_by_comp)
     tabs = build_dec_tables_v2(uniq)
     qts, q_of = quant_slots(plan, info)
@@ -500,7 +516,7 @@ def _dec_context(cache: dict, plan: CoderPlan, info, dc_by_comp, ac_by_comp,
         ctx = _DecContext(plan, out_image, decode_device_tables(
             tabs, wide_quick_tables(tabs), dc_slot, ac_slot, qts, q_of,
             device), device)
-        while len(cache) >= DEC_CONTEXTS:
+        while len(cache) >= limit:
             cache.pop(next(iter(cache)))
         cache[key] = ctx
     return ctx

@@ -434,12 +434,10 @@ def preprocess_planes(raw: torch.Tensor, g: PlaneGeometry) -> torch.Tensor:
     if raw.device.type != "cuda":
         raise ValueError(f"unsupported device {raw.device}")
     out = torch.empty((g.total,), dtype=torch.uint8, device=raw.device)
-    lib = _build.load_kernels()
-    err = lib.gj_preprocess_planes(
-        raw.data_ptr(), g.host.ctypes.data, g.bands.data_ptr(),
-        g.bands.shape[0] - 1, out.data_ptr(),
-        torch.cuda.current_stream(raw.device).cuda_stream)
-    _build.check_launch("gj_preprocess_planes", err)
+    _build.launch(
+        "gj_preprocess_planes", raw.device, raw.data_ptr(),
+        g.host.ctypes.data, g.bands.data_ptr(), g.bands.shape[0] - 1,
+        out.data_ptr())
     preprocess_planes.launches += 1
     return out
 
@@ -595,11 +593,9 @@ def postprocess_planes(planes: torch.Tensor, g: OutGeometry) -> torch.Tensor:
     if planes.device.type != "cuda":
         raise ValueError(f"unsupported device {planes.device}")
     out = torch.empty((g.raw_bytes,), dtype=torch.uint8, device=planes.device)
-    lib = _build.load_kernels()
-    err = lib.gj_postprocess_planes(
-        planes.data_ptr(), g.host.ctypes.data, out.data_ptr(),
-        torch.cuda.current_stream(planes.device).cuda_stream)
-    _build.check_launch("gj_postprocess_planes", err)
+    _build.launch(
+        "gj_postprocess_planes", planes.device, planes.data_ptr(),
+        g.host.ctypes.data, out.data_ptr())
     postprocess_planes.launches += 1
     return out
 

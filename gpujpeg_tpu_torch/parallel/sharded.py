@@ -1,0 +1,589 @@
+"""Band- and frame-sharded encode and decode over torch devices.
+
+Counterpart of the JAX reference's ``gpujpeg_tpu/parallel/sharded.py``.
+The reference GPUJPEG has no such layer (one coder per GPU,
+gpujpeg_common.c:192-260); the port keeps the JAX package's:
+
+* **Band sharding (the mesh's ``seg`` axis).** One image is split into
+  horizontal bands of whole MCU rows, one a ``seg`` device. Restart
+  markers make the bands independent (DC prediction resets at every
+  RST, gpujpeg_huffman_gpu_encoder.cu:326-337), so each device runs the
+  port's per-frame route on its band: E1 -> E2 -> E3 (interleaved RGB
+  4:4:4) or E0 -> E1p -> E2 -> E3 to encode, D1 -> D2 or D1 -> D2p -> D3
+  to decode (``ops/pipeline.py``). A band's markers are numbered in the
+  whole frame's scans (:func:`_global_rst_arrays`), so the host only
+  concatenates each band's compacted segments in scan order, writes the
+  full image's header and back-patches APP13 with the global segment
+  starts: the stream is byte for byte the single-device one.
+* **Frame sharding (the ``frame`` axis).** A batch's frames are dealt
+  over the mesh's rows, each frame's bands over its row's devices.
+
+A :class:`Mesh` is a 2-D grid of ``torch.device``. A device may appear
+more than once (several bands on one card, or on ``cpu``); bands that
+share a device run one after another on its current stream, bands on
+distinct cards overlap: every band is launched before the first host
+sync. The default mesh is ``(1, torch.cuda.device_count())`` over the
+CUDA devices; without a card it raises and never falls back to the CPU.
+
+Alignment rules (:func:`plan_bands`): a band holds whole MCU rows, and
+the restart interval divides every scan's per-band MCU count, so band
+boundaries are segment boundaries; :func:`choose_restart_interval`
+picks the largest such interval at or below the single-device
+suggestion (gpujpeg_encoder.c:256-283).
+
+The reference's TPU machinery has no counterpart here, and why:
+
+* ``shard_map``, ``jax.jit`` and the executable cache: each band calls
+  the port's kernels eagerly on its device; what is cached is the
+  per-plan device context (``pipeline._enc_context`` and
+  ``_dec_context``, keyed by geometry and device), shared by every band
+  of one geometry on one device;
+* ``check_vma``: it exists only for ``pallas_call`` outputs inside
+  ``shard_map``;
+* the K1 words/band eligibility (``_fused_band_ctx``): the port's
+  route is chosen per plan by ``pipeline.rgb_eligible``, as for a frame;
+* the tier-1/tier-2 loop (``_ShardedBuild.tier2``) and the golden "last
+  resort" encode: E2 and E3 size every block and segment for the worst
+  case, so nothing overflows and there is nothing to retry;
+* the v1/v3 decode routes, ``_V3Unroutable`` and ``L_pad``: D1 takes
+  any row width, and each band's rows are built to its own width;
+* the ``except Exception`` re-decode in ``decode_batch`` and the XLA
+  fallback in ``_decode_bands``: they hid kernel failures. Here a
+  kernel that fails raises, inside a batch too, and ``GPUJPEG_TPU_STRICT``
+  (which turned that hiding off in the reference's tests) has nothing
+  to turn off;
+* the unused imports ``huffman_encode_kernel`` and
+  ``fdct_operator_f32``.
+
+What stays is routing by geometry: a stream whose height does not split
+into whole-MCU-row bands, whose segments do not divide across them, or
+that has no restart markers is decoded by the port's ``Decoder`` on the
+mesh's first device (the reference hands it to ``Decoder(backend=
+"jax")``).
+"""
+from __future__ import annotations
+
+import collections
+import contextlib
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..models.decoder import Decoder, huffman_maps
+from ..ops.decode import build_rows
+from ..ops.huffman_encode import compact_segments
+from ..ops.pipeline import (DEC_CONTEXTS, PinnedRing, _dec_context,
+                            _enc_context, decode_collect, decode_launch)
+from ..params import ImageParameters, Parameters, suggest_restart_interval
+from ..plan import CoderPlan, make_plan
+from ..stream import reader as stream_reader
+from ..stream.writer import HeaderType, JpegWriter
+from ..tables import default_huffman_table, quant_table_zz
+from ..types import (PIXEL_FORMAT_DESC, ColorSpace, ComponentType,
+                     HuffmanType, PixelFormat, image_calculate_size)
+
+
+class Mesh:
+    """A ``("frame", "seg")`` grid of torch devices: the port's stand-in
+    for the ``jax.sharding.Mesh`` the reference takes. ``devices`` is a
+    2-D object array (rows are ``frame`` entries, columns ``seg``
+    entries); ``shape`` maps each axis name to its size. An entry may be
+    ``None`` where the device belongs to another process
+    (``multihost.global_mesh``)."""
+
+    axis_names = ("frame", "seg")
+
+    def __init__(self, devices):
+        rows = [list(r) for r in devices]
+        if not rows or not rows[0] or len({len(r) for r in rows}) != 1:
+            raise ValueError("a mesh is a non-empty 2-D grid of devices")
+        self.devices = np.empty((len(rows), len(rows[0])), dtype=object)
+        for i, r in enumerate(rows):
+            for j, d in enumerate(r):
+                self.devices[i, j] = None if d is None else torch.device(d)
+        self.shape = dict(zip(self.axis_names, self.devices.shape))
+
+
+def local_cuda_mesh() -> Mesh:
+    """``(1, n)`` over this process's n CUDA devices; raises without one."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available: pass a Mesh of the "
+                           "devices to run on")
+    return Mesh([[torch.device("cuda", i)
+                  for i in range(torch.cuda.device_count())]])
+
+
+def on_device(device: torch.device):
+    """Makes ``device`` current for the block when it is a CUDA device."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
+@dataclasses.dataclass(frozen=True)
+class BandLayout:
+    """Static description of how an image splits into per-device bands."""
+
+    n_bands: int
+    rows_per_band: int
+    band_image: ImageParameters
+    plan: CoderPlan           # per-band coder plan (identical for all bands)
+    band_raw_bytes: int
+
+    @property
+    def segs_per_band(self) -> int:
+        return self.plan.n_segments
+
+
+def _mcu_pixel_height(params: Parameters, comp_count: int) -> int:
+    if comp_count == 1:
+        return 8
+    max_v = max(s.vertical for s in params.sampling_factor[:comp_count])
+    return 8 * max_v
+
+
+def choose_restart_interval(params: Parameters, image: ImageParameters,
+                            n_bands: int) -> int:
+    """Largest restart interval <= the single-chip suggestion that divides
+    every component's per-band MCU count (so all bands' segments are full)."""
+    rows = image.height // n_bands
+    subsampled = any(s != params.sampling_factor[0]
+                     for s in params.sampling_factor[:image.comp_count])
+    want = suggest_restart_interval(image, subsampled, params.interleaved,
+                                    pow2=True, quality=params.quality)
+    band_image = dataclasses.replace(image, height=rows)
+    plan = make_plan(dataclasses.replace(params, restart_interval=0), band_image)
+    if params.interleaved and image.comp_count > 1:
+        counts = [plan.scans[0].mcu_count]
+    else:
+        counts = [c.mcu_count for c in plan.components]
+    for ri in range(min(want, min(counts)), 0, -1):
+        if all(cnt % ri == 0 for cnt in counts):
+            return ri
+    return 1
+
+
+def plan_bands(params: Parameters, image: ImageParameters,
+               n_bands: int) -> BandLayout:
+    """Split the image into ``n_bands`` equal horizontal bands of whole MCU
+    rows and build the per-band coder plan."""
+    mcu_h = _mcu_pixel_height(params, image.comp_count)
+    if params.restart_interval <= 0 and n_bands > 1:
+        raise ValueError("sharded encode requires restart markers "
+                         "(restart_interval > 0): segments are the unit of "
+                         "cross-device independence")
+    if image.height % n_bands != 0:
+        raise ValueError(
+            f"image height {image.height} not divisible into {n_bands} bands")
+    rows = image.height // n_bands
+    if rows % mcu_h != 0:
+        raise ValueError(
+            f"band height {rows} is not a multiple of the MCU height {mcu_h}")
+    band_image = dataclasses.replace(image, height=rows)
+    plan = make_plan(params, band_image)
+    # every band but the last must end exactly on a segment boundary, i.e.
+    # the restart interval divides each scan's per-band MCU count
+    if n_bands > 1:
+        if params.interleaved and image.comp_count > 1:
+            counts = {0: plan.scans[0].mcu_count}
+        else:
+            counts = {c.index: c.mcu_count for c in plan.components}
+        for idx, cnt in counts.items():
+            if cnt % params.restart_interval != 0:
+                raise ValueError(
+                    f"restart interval {params.restart_interval} does not "
+                    f"divide scan {idx}'s per-band MCU count {cnt}; use "
+                    "choose_restart_interval()")
+    return BandLayout(
+        n_bands=n_bands, rows_per_band=rows, band_image=band_image,
+        plan=plan,
+        band_raw_bytes=image_calculate_size(image.width, rows,
+                                            image.pixel_format),
+    )
+
+
+def split_raw_bands(raw, image: ImageParameters, layout: BandLayout):
+    """Reshape a raw frame into (n_bands, band_raw_bytes) — contiguous for
+    packed formats, a per-component row-slice shuffle for planar ones.
+
+    ``raw`` is what ``Encoder.encode`` takes: bytes or a NumPy array (a
+    NumPy array comes back), or a uint8 tensor, or an int32 one read as
+    its little-endian bytes (a tensor comes back, on the same device:
+    views of it for packed formats, one concatenation on its device for
+    planar ones)."""
+    if isinstance(raw, torch.Tensor):
+        if raw.dtype == torch.int32:
+            raw = raw.contiguous().view(torch.uint8)
+        elif raw.dtype != torch.uint8:
+            raise ValueError(f"a raw frame tensor must be uint8 or int32, "
+                             f"got {raw.dtype}")
+        raw = raw.reshape(-1)
+        cat = torch.cat
+    else:
+        raw = (np.frombuffer(raw, np.uint8)
+               if isinstance(raw, (bytes, bytearray, memoryview))
+               else np.asarray(raw, dtype=np.uint8)).reshape(-1)
+        cat = np.concatenate
+    desc = PIXEL_FORMAT_DESC[PixelFormat(image.pixel_format)]
+    n, rows = layout.n_bands, layout.rows_per_band
+    if not desc.planar:
+        return raw.reshape(n, rows * image.width * desc.bpp)
+    # planar: slice each component's plane by rows, re-concat per band
+    sf0 = desc.sampling[0]
+    parts = []
+    pos = 0
+    for c in range(desc.comp_count):
+        sfc = desc.sampling[c]
+        cw = -(-image.width * sfc.horizontal // sf0.horizontal)
+        ch = -(-image.height * sfc.vertical // sf0.vertical)
+        plane = raw[pos:pos + cw * ch].reshape(ch, cw)
+        pos += cw * ch
+        parts.append(plane.reshape(n, ch // n * cw))
+    return cat(parts, 1)
+
+
+def _global_rst_arrays(layout: BandLayout) -> tuple[np.ndarray, np.ndarray]:
+    """Per-band RST markers / has-RST flags with *global* scan numbering.
+
+    Within one scan, segment i gets RST(i % 8) after it, except the very
+    last segment of the scan (reference: gpujpeg_encoder.c:479-537). Bands
+    concatenate in order inside each scan, so band b's local segment j of
+    scan s has global index b * segs_per_band(s) + j.
+    """
+    plan = layout.plan
+    n = layout.n_bands
+    S = plan.n_segments
+    rst = np.zeros((n, S), np.int32)
+    has = np.ones((n, S), np.int32)
+    for s in range(S):
+        scan_id = int(plan.seg_scan[s])
+        local_idx = int(plan.seg_scan_index[s])
+        spb = plan.scans[scan_id].segment_count
+        for b in range(n):
+            g = b * spb + local_idx
+            rst[b, s] = 0xD0 + (g % 8)
+            if b == n - 1 and local_idx == spb - 1:
+                has[b, s] = 0
+    return rst, has
+
+
+def _stitch(raw_bands: np.ndarray, out_image: ImageParameters,
+            layout: BandLayout) -> np.ndarray:
+    """Inverse of split_raw_bands: per-band raw buffers -> one frame."""
+    desc = PIXEL_FORMAT_DESC[PixelFormat(out_image.pixel_format)]
+    if not desc.planar:
+        return raw_bands.reshape(-1)
+    n = layout.n_bands
+    H, W = out_image.height, out_image.width
+    sf0 = desc.sampling[0]
+    parts = []
+    pos = 0
+    for c in range(desc.comp_count):
+        sfc = desc.sampling[c]
+        cw = -(-W * sfc.horizontal // sf0.horizontal)
+        ch = -(-H * sfc.vertical // sf0.vertical)
+        rows_band = ch // n
+        parts.append(raw_bands[:, pos:pos + rows_band * cw].reshape(-1))
+        pos += rows_band * cw
+    return np.concatenate(parts)
+
+
+def _mesh_devices(mesh: Mesh) -> set:
+    return {str(d) for d in mesh.devices.reshape(-1) if d is not None}
+
+
+# ---------------------------------------------------------------------------
+# Decode
+# ---------------------------------------------------------------------------
+
+class _BandJob:
+    """A stream's band decode: its layout, output and, per band, the
+    decode context and the destuffed segment rows."""
+
+    def __init__(self, layout: BandLayout, out_image: ImageParameters,
+                 bands: list):
+        self.layout = layout
+        self.out_image = out_image
+        self.bands = bands
+
+
+class ShardedDecoder:
+    """Decoder that deals restart segments to devices band by band.
+
+    The decode mirror of :class:`ShardedEncoder`: the host parses markers
+    and splits each scan into segments (O(1) with APP13 segment info,
+    reference: gpujpeg_reader.c:1058-1126), gives band b segments
+    ``[b * spb, (b + 1) * spb)`` of every scan, builds its destuffed rows
+    (``decode.build_rows`` on the band plan) and decodes them on the
+    ``seg`` device of the mesh's first row through the port's device
+    route (D1 -> D2, or D1 -> D2p -> D3) into the band's rows of the
+    output; the host stitches the bands. The output is the stream's own
+    pixel format in RGB (as the reference's). Every band takes the
+    device route, whatever its segment count. Other streams are routed to
+    the port's ``Decoder`` on the mesh's first device (module doc)."""
+
+    def __init__(self, mesh: Mesh | None = None):
+        self.mesh = local_cuda_mesh() if mesh is None else mesh
+        self.n_seg = self.mesh.shape["seg"]
+        self.devices = list(self.mesh.devices[0])
+        if any(d is None for d in self.devices):
+            raise ValueError("the mesh's first row must name a device for "
+                             "every band")
+        self._contexts: dict = {}
+        self._limit = DEC_CONTEXTS * len(_mesh_devices(self.mesh))
+        self._single = Decoder(device=self.devices[0])
+        # read by pipeline.decode_launch: the bands come back to the host
+        self.output_to_device = False
+        self.capture_device_call = False
+
+    # ------------------------------------------------------------------
+    def decode(self, data: bytes) -> tuple[np.ndarray, ImageParameters]:
+        job = self._prep(data)
+        if job is None:
+            return self._single.decode(data)
+        return self._collect(job, self._launch(job, None))
+
+    def decode_batch(self, streams, window: int = 3) -> list:
+        """Decode a frame sequence; returns ``[(raw, ImageParameters),
+        ...]`` in order, each equal to :meth:`decode` of that stream. At
+        most ``window`` frames' bands are in flight: a frame's parse and
+        row build run on the host before the oldest frame is waited for,
+        so they overlap the devices' work on the frames before it (the
+        sharded mirror of ``Decoder.decode_batch``; each band through
+        ``pipeline.decode_launch`` and ``decode_collect``). A stream routed
+        to the single-device ``Decoder`` is decoded in turn. A kernel that
+        fails raises here as in :meth:`decode`."""
+        if window < 1:
+            raise ValueError(f"window must be at least 1, got {window}")
+        staging = (PinnedRing(window * self.n_seg + 1)
+                   if any(d.type == "cuda" for d in self.devices) else None)
+        out: list = []
+        pending: collections.deque = collections.deque()
+
+        def collect():
+            job, launched = pending.popleft()
+            out.append(launched if job is None
+                       else self._collect(job, launched))
+
+        try:
+            for data in streams:
+                job = self._prep(data)
+                if job is None:
+                    launched = self._single.decode(data)
+                else:
+                    while len(pending) >= window:
+                        collect()
+                    launched = self._launch(job, staging)
+                pending.append((job, launched))
+                while len(pending) > window:
+                    collect()
+            while pending:
+                collect()
+        finally:
+            if staging is not None:
+                staging.wait()
+        return out
+
+    # ------------------------------------------------------------------
+    def _prep(self, data: bytes) -> _BandJob | None:
+        """Parse a stream and build its bands' contexts and rows, or None
+        where it is routed to the single-device decoder."""
+        info = stream_reader.read_image(data)
+        plan, scan_data, segments_by_scan = self._single._plan_from_info(info)
+        n = self.n_seg
+        if plan.params.restart_interval <= 0:
+            return None
+        try:
+            layout = plan_bands(plan.params, plan.image, n)
+        except ValueError:
+            return None
+        for scan in layout.plan.scans:
+            if plan.scans[scan.index].segment_count != scan.segment_count * n:
+                return None
+        dc_by_comp, ac_by_comp = huffman_maps(info)
+        out_image = ImageParameters(
+            width=info.width, height=info.height,
+            color_space=ColorSpace.RGB,
+            pixel_format=info.deduce_pixel_format())
+        band_out = dataclasses.replace(out_image,
+                                       height=layout.rows_per_band)
+        bands = []
+        for b, device in enumerate(self.devices):
+            data_b, segs_b = [], []
+            for scan, sd, segs in zip(layout.plan.scans, scan_data,
+                                      segments_by_scan):
+                spb = scan.segment_count
+                part = np.asarray(segs, np.int64).reshape(-1, 2)[
+                    b * spb:(b + 1) * spb]
+                lo, hi = (int(part[0, 0]), int(part[-1, 1])) if len(part) \
+                    else (0, 0)
+                data_b.append(np.asarray(sd)[lo:hi])
+                segs_b.append(part - lo)
+            ctx = _dec_context(self._contexts, layout.plan, info, dc_by_comp,
+                               ac_by_comp, band_out, device, self._limit)
+            bands.append((ctx, build_rows(layout.plan, data_b, segs_b)))
+        return _BandJob(layout, out_image, bands)
+
+    def _launch(self, job: _BandJob, staging: PinnedRing | None) -> list:
+        """Every band's upload and kernels, and its copy back queued, each
+        on its device's current stream, with no sync."""
+        launched = []
+        for ctx, rows in job.bands:
+            with on_device(ctx.device):
+                launched.append(decode_launch(self, ctx, rows, staging))
+        return launched
+
+    def _collect(self, job: _BandJob, launched: list):
+        raw_bands = np.stack([decode_collect(x).numpy() for x in launched])
+        return _stitch(raw_bands, job.out_image, job.layout), job.out_image
+
+
+# ---------------------------------------------------------------------------
+# Encode
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class _ShardedBuild:
+    """Per-(params, image) sharded-encode state: the band layout, the
+    full image's plan (for the header), the tables and each band's global
+    markers, as host arrays and, per device, as tensors."""
+    layout: BandLayout
+    full_plan: CoderPlan
+    quant_zz: dict
+    huff: dict
+    rst_np: np.ndarray
+    has_np: np.ndarray
+    markers: dict = dataclasses.field(default_factory=dict)
+
+    def band_markers(self, b: int, device: torch.device):
+        """Band ``b``'s (rst, has_rst) int32 tensors on ``device``."""
+        key = (b, str(device))
+        hit = self.markers.get(key)
+        if hit is None:
+            hit = tuple(torch.as_tensor(np.ascontiguousarray(a[b]),
+                                        device=device)
+                        for a in (self.rst_np, self.has_np))
+            self.markers[key] = hit
+        return hit
+
+
+class ShardedEncoder:
+    """Encoder that shards one image's MCU-row bands across the ``seg``
+    mesh axis and a frame batch across the ``frame`` axis. Every stream
+    is byte for byte ``Encoder.encode``'s at the same parameters."""
+
+    def __init__(self, mesh: Mesh | None = None):
+        self.mesh = local_cuda_mesh() if mesh is None else mesh
+        self.n_seg = self.mesh.shape["seg"]
+        self.n_frame = self.mesh.shape.get("frame", 1)
+        self._cache: dict = {}
+        self._contexts: dict = {}
+        #: ``(fn, args)`` of the last :meth:`encode_batch`: ``fn(*args)``
+        #: replays its band launches (inputs already on the devices) and
+        #: returns each band's (out, out_len, seg_bits, n_ff)
+        self.last_device_call = None
+
+    # ------------------------------------------------------------------
+    def _build(self, params: Parameters, image: ImageParameters):
+        key = (params, image)
+        hit = self._cache.get(key)
+        if hit is None:
+            layout = plan_bands(params, image, self.n_seg)
+            rst_np, has_np = _global_rst_arrays(layout)
+            quant_zz = {
+                0: quant_table_zz(ComponentType.LUMINANCE, params.quality),
+                1: quant_table_zz(ComponentType.CHROMINANCE, params.quality),
+            }
+            huff = {
+                (ct, ht): default_huffman_table(ct, ht)
+                for ct in (ComponentType.LUMINANCE, ComponentType.CHROMINANCE)
+                for ht in (HuffmanType.DC, HuffmanType.AC)
+            }
+            hit = _ShardedBuild(layout, make_plan(params, image), quant_zz,
+                                huff, rst_np, has_np)
+            self._cache[key] = hit
+        return hit
+
+    # ------------------------------------------------------------------
+    def encode(self, raw, params: Parameters, image: ImageParameters) -> bytes:
+        """Encode one frame sharded across the ``seg`` axis."""
+        return self.encode_batch([raw], params, image)[0]
+
+    def encode_batch(self, raws, params: Parameters,
+                     image: ImageParameters) -> list[bytes]:
+        """Encode same-geometry frames: frame i on row ``i % frame`` of the
+        mesh, its bands over that row's devices. Every band of every frame
+        is launched before the first host sync, so distinct cards overlap;
+        then each band's lengths come back, its segments are compacted
+        on its device and copied to the host, and each frame's stream is
+        assembled. Frames are what ``Encoder.encode`` takes (bytes, NumPy
+        arrays or tensors). The devices hold every frame's output at once:
+        split long sequences into batches."""
+        b = self._build(params, image)
+        launched = []
+        for f, raw in enumerate(raws):
+            bands = split_raw_bands(raw, image, b.layout)
+            launched.append([
+                self._launch_band(b, i, bands[i], device)
+                for i, device in enumerate(self.mesh.devices[f % self.n_frame])])
+        self.last_device_call = (_replay_bands, (
+            [args for frame in launched for args, _ in frame],))
+        return [self._assemble(b, [self._compact(args[0], out)
+                                   for args, out in frame])
+                for frame in launched]
+
+    def _launch_band(self, b: _ShardedBuild, i: int, band,
+                     device: torch.device):
+        """Upload band ``i`` to ``device`` and launch its route there with
+        its global markers, on the device's current stream; returns
+        ((context, uploaded band, rst, has_rst), E3's output)."""
+        ctx = _enc_context(self._contexts, b.layout.plan, b.quant_zz, b.huff,
+                           device)
+        rst, has = b.band_markers(i, device)
+        with on_device(device):
+            x = ctx.upload(band)
+            return (ctx, x, rst, has), ctx.run(x, rst=rst, has_rst=has)
+
+    @staticmethod
+    def _compact(ctx, out) -> tuple[np.ndarray, np.ndarray]:
+        """A band's E3 output -> (its compacted bytes, per-segment byte
+        counts) on the host."""
+        with on_device(ctx.device):
+            out_len_h = out[1].cpu().numpy()
+            flat, _ = compact_segments(out[0], out_len_h, ctx.geo.cap_out)
+        return flat, out_len_h
+
+    def _assemble(self, b: _ShardedBuild, bands: list) -> bytes:
+        """Host-side stream formatting from every band's (bytes, lengths),
+        in band order: concatenate each scan's segments over the bands in
+        global scan order, write the full image's header and back-patch
+        APP13 with the global segment starts (reference:
+        gpujpeg_encoder.c:479-537)."""
+        plan = b.layout.plan
+        starts = [np.concatenate([[0], np.cumsum(lens, dtype=np.int64)])
+                  for _, lens in bands]
+        w = JpegWriter()
+        w.write_header(b.full_plan, b.quant_zz, b.huff, HeaderType.DEFAULT)
+        for scan in plan.scans:
+            ids = np.flatnonzero(plan.seg_scan == scan.index)
+            lo, hi = int(ids[0]), int(ids[-1]) + 1
+            w.write_scan_header(b.full_plan, scan.index)
+            w.emit_bytes(np.concatenate([
+                flat[st[lo]:st[hi]] for (flat, _), st in zip(bands, starts)]))
+            sizes = np.concatenate([lens[lo:hi] for _, lens in bands])
+            w.patch_segment_info(
+                np.concatenate([[0], np.cumsum(sizes, dtype=np.int64)]))
+        w.write_eoi()
+        return w.tobytes()
+
+
+def _replay_bands(bands: list) -> list:
+    """Re-run each band's kernels: ``bands`` holds (context, uploaded
+    band, rst, has_rst) as :meth:`ShardedEncoder.encode_batch` launched
+    them."""
+    outs = []
+    for ctx, x, rst, has in bands:
+        with on_device(ctx.device):
+            outs.append(ctx.run(x, rst=rst, has_rst=has))
+    return outs

@@ -120,13 +120,12 @@ def _call_cut(lib, args: tuple, cap_words: int):
     words = torch.empty((NB, cap_words), dtype=torch.int32,
                         device=blocks.device)
     bits = torch.empty((NB,), dtype=torch.int32, device=blocks.device)
-    err = lib.gj_dct_huffman_blocks(
-        blocks.data_ptr(), NB, diff.data_ptr(), cls.data_ptr(),
-        valid.data_ptr(), qsel.data_ptr(), qdiv.data_ptr(), bias.data_ptr(),
-        ac.data_ptr(), dc.data_ptr(), cap_words,
-        entropy.STOP_MODES.index("full"), words.data_ptr(), bits.data_ptr(),
-        torch.cuda.current_stream(blocks.device).cuda_stream)
-    _build.check_launch("cut gj_dct_huffman_blocks", err)
+    _build.launch(
+        "gj_dct_huffman_blocks", blocks.device, blocks.data_ptr(), NB,
+        diff.data_ptr(), cls.data_ptr(), valid.data_ptr(), qsel.data_ptr(),
+        qdiv.data_ptr(), bias.data_ptr(), ac.data_ptr(), dc.data_ptr(),
+        cap_words, entropy.STOP_MODES.index("full"), words.data_ptr(),
+        bits.data_ptr(), lib=lib)
 
 
 def main_path(height: int, width: int, dev):

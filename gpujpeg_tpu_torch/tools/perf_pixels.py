@@ -131,18 +131,14 @@ def cut_library() -> ctypes.CDLL:
 
 
 def _e0_cut(lib, raw, g, out):
-    err = lib.gj_preprocess_planes(
-        raw.data_ptr(), g.host.ctypes.data, g.bands.data_ptr(),
-        g.bands.shape[0] - 1, out.data_ptr(),
-        torch.cuda.current_stream(raw.device).cuda_stream)
-    _build.check_launch("cut gj_preprocess_planes", err)
+    _build.launch("gj_preprocess_planes", raw.device, raw.data_ptr(),
+                  g.host.ctypes.data, g.bands.data_ptr(),
+                  g.bands.shape[0] - 1, out.data_ptr(), lib=lib)
 
 
 def _d3_cut(lib, planes, g, out):
-    err = lib.gj_postprocess_planes(
-        planes.data_ptr(), g.host.ctypes.data, out.data_ptr(),
-        torch.cuda.current_stream(planes.device).cuda_stream)
-    _build.check_launch("cut gj_postprocess_planes", err)
+    _build.launch("gj_postprocess_planes", planes.device, planes.data_ptr(),
+                  g.host.ctypes.data, out.data_ptr(), lib=lib)
 
 
 def run(stages, dev, height: int, width: int, reps: int = 20) -> list[dict]:

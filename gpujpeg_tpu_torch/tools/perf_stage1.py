@@ -63,11 +63,8 @@ def copy_bytes(x: torch.Tensor) -> torch.Tensor:
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     out = torch.empty_like(x)
-    lib = _build.load_kernels()
-    err = lib.gj_copy_bytes(x.data_ptr(), out.data_ptr(),
-                            x.numel() * x.element_size(),
-                            torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check_launch("gj_copy_bytes", err)
+    _build.launch("gj_copy_bytes", x.device, x.data_ptr(), out.data_ptr(),
+                  x.numel() * x.element_size())
     copy_bytes.launches += 1
     return out
 
@@ -91,9 +88,8 @@ def copy_launch(n_bytes: int) -> tuple[int, int]:
     """(CTAs, threads) that ``gj_copy_bytes`` launches for ``n_bytes``,
     from the built kernel library (``gj_copy_bytes_grid``)."""
     ctas, threads = ctypes.c_longlong(), ctypes.c_int()
-    err = _build.load_kernels().gj_copy_bytes_grid(
-        n_bytes, ctypes.byref(ctas), ctypes.byref(threads))
-    _build.check_launch("gj_copy_bytes_grid", err)
+    _build.query("gj_copy_bytes_grid", n_bytes, ctypes.byref(ctas),
+                 ctypes.byref(threads))
     return ctas.value, threads.value
 
 

@@ -42,7 +42,9 @@ def test_port_imports_without_jax():
     mods = set(r.stdout.split()[1:])
     for name in ("cli", "__main__", "utils.image_io", "tools.reformat",
                  "tools.perf_e12", "tools.perf_pixels",
-                 "examples.video_pipeline"):
+                 "examples.video_pipeline", "parallel.sharded",
+                 "parallel.multihost", "examples.sharded_encode",
+                 "examples.multihost_video"):
         assert f"gpujpeg_tpu_torch.{name}" in mods, name
 
 
@@ -183,3 +185,82 @@ def test_kernel_build_runs_one_nvcc_per_source_together(tmp_path,
         assert len(list(log.glob("started-*.cu"))) == n
         assert sorted(p.name for p in build.iterdir()) == (
             [os.path.basename(so)] if case == "ok" else [])
+
+
+def test_every_launch_goes_through_the_device_guard():
+    """No kernel entry is called with a stream outside ``_build.launch``:
+    the package's and ``chip_smoke.py``'s sources name no ``check_launch(``
+    and no ``cuda_stream`` anywhere but ``_build.py``."""
+    import glob
+    pkg = os.path.join(REPO, "gpujpeg_tpu_torch")
+    files = sorted(glob.glob(os.path.join(pkg, "**", "*.py"), recursive=True))
+    files.append(os.path.join(REPO, "chip_smoke.py"))
+    launches = []
+    for path in files:
+        with open(path) as f:
+            text = f.read()
+        if os.path.basename(path) == "_build.py":
+            assert "torch.cuda.device(device)" in text
+            continue
+        assert "check_launch(" not in text, path
+        assert "cuda_stream" not in text, path
+        launches.append(text.count("_build.launch(")
+                        + text.count("_build.query("))
+    # the wrappers' 10 launches, the tools' 4 and their grid query, and
+    # chip_smoke's edge copies
+    assert sum(launches) >= 16
+
+
+class _Guard:
+    """Stand-in for ``torch.cuda.device``: logs entering and leaving."""
+    log: list = []
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+
+    def __enter__(self):
+        self.log.append(("enter", self.device))
+
+    def __exit__(self, *exc):
+        self.log.append(("exit", self.device))
+
+
+class _Stream:
+    def __init__(self, device):
+        self.cuda_stream = 0x5000 + torch.device(device).index
+
+
+class _Lib:
+    """Stand-in kernel library: each entry logs its arguments and the
+    guard's state, and returns ``err``."""
+    err = 0
+
+    def gj_fake(self, *args):
+        _Guard.log.append(("call", args))
+        return self.err
+
+
+def test_launch_enters_the_tensors_device_and_checks(monkeypatch):
+    """``_build.launch`` makes the operands' card current around the entry
+    (so ``cudaGetDevice`` and ``cudaFuncSetAttribute`` act on it), passes
+    that card's current stream last, leaves the guard on an error and
+    raises on a non-zero return; ``query`` passes no stream."""
+    from gpujpeg_tpu_torch import _build
+    monkeypatch.setattr(torch.cuda, "device", _Guard)
+    monkeypatch.setattr(torch.cuda, "current_stream", _Stream)
+    monkeypatch.setattr(_Guard, "log", [])
+    lib = _Lib()
+    dev = torch.device("cuda", 1)
+    _build.launch("gj_fake", dev, 7, 8, lib=lib)
+    assert _Guard.log == [("enter", dev), ("call", (7, 8, 0x5001)),
+                          ("exit", dev)]
+    lib.err = 700
+    with pytest.raises(RuntimeError, match="gj_fake: CUDA launch failed "
+                                           "with error 700"):
+        _build.launch("gj_fake", "cuda:3", 9, lib=lib)
+    assert _Guard.log[3:] == [("enter", torch.device("cuda", 3)),
+                              ("call", (9, 0x5003)),
+                              ("exit", torch.device("cuda", 3))]
+    with pytest.raises(RuntimeError, match="error 700"):
+        _build.query("gj_fake", 5, lib=lib)
+    assert _Guard.log[-1] == ("call", (5,))
