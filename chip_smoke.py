@@ -167,11 +167,26 @@ the first failure:
    (vi) ``examples/sharded_encode.py`` and ``examples/multihost_video.py``
    at their defaults on ``cuda`` (with (v)'s ranks, four processes at
    once); (vii) with two or more cards, (i) and (iii) again over distinct
-   cards, else a line that says only meshes repeating cuda:0 ran.
+   cards, else a line that says only meshes repeating cuda:0 ran;
+16. the bench entry points (``gpujpeg_tpu_torch/tools/bench.py`` and
+   ``bench_suite.py``): ``python -m gpujpeg_tpu_torch.tools.bench`` in a
+   subprocess at a depth of ``BENCH16_ITERS``, exit 0, every key of its
+   line, a time in each time key, the route gate's launches and the
+   card's name, beside (at the same time, so its times are not
+   measurements) the first 16K encode and decode on the card in this
+   process, ``bench_suite.bench_res("16K", 3)`` (15360x8640, interval
+   32, 194,400 segments) with the launch counts set to 0 before it: E1,
+   E2, E3, D1 and D2 launched 5 times each, no other kernel; the first
+   encode's peak memory within ``Encoder.max_memory``; the kernels'
+   coefficients of the frame against the float64 golden DCT under the
+   tie rule and the stream equal to the golden entropy coder's on them;
+   ``Decoder.decode`` of the stream to its own colour space within 1 of
+   the golden decoder's; the phase timed.
 
 The line before the last is a JSON object with every kernel's numbers
-(its time, plain time, bound and launches on its path, and
-``sharded_launches``: its launches in each of phase 15's runs), the line
+(its time, plain time, bound and launches on its path,
+``sharded_launches``: its launches in each of phase 15's runs, and
+``bench16k_launches``: in phase 16's 16K run), the line
 before it phase 14's batch rows; the last line is ``{"ok": true,
 "device": {...}}``. ``chip_smoke.py --rank R PORT DIR LIB`` is phase 15
 (v)'s rank process and is not run by hand.
@@ -214,18 +229,6 @@ def make_image(H: int, W: int, seed: int = 7) -> np.ndarray:
     """The JAX package's bench frame (``tools.bench_frame``)."""
     from gpujpeg_tpu_torch.tools import bench_frame
     return bench_frame(H, W, seed)
-
-
-def card_line() -> str:
-    cmd = ["nvidia-smi", "--query-gpu=name,power.limit",
-           "--format=csv,noheader"]
-    visible = os.environ.get("CUDA_VISIBLE_DEVICES", "").split(",")[0].strip()
-    if visible:
-        cmd += ["-i", visible]
-    r = subprocess.run(cmd, capture_output=True, text=True, timeout=60)
-    if r.returncode != 0 or not r.stdout.strip():
-        fail(f"nvidia-smi failed: {r.stderr.strip()}")
-    return r.stdout.strip().splitlines()[0]
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -1208,18 +1211,17 @@ def phase_general_kernels(gj, img: np.ndarray, configs: dict,
     return rows_out
 
 
-def golden_check(gj, ctx, raw, params, image, data: bytes, what: str):
-    """The stream against the golden coder: equal to the golden entropy
-    coder's stream of the kernels' own coefficients, byte-equal to the
-    golden encoder's in every segment without a .5 tie, golden-decoded
-    PSNR (against the raw input, in its own format) within PSNR_DB.
-    Returns a summary string."""
+def coefficient_check(gj, ctx, raw, params, image, data: bytes,
+                      what: str) -> tuple[int, set]:
+    """The kernels' own coefficients of ``raw`` against the float64 golden
+    DCT under the per-coefficient tie rule, and the stream equal to the
+    golden entropy coder's stream of those coefficients; (coefficients at
+    .5 ties, the segments that hold them)."""
     from gpujpeg_tpu_torch.native import encode_segments_native
     from gpujpeg_tpu_torch.types import HuffmanType
     golden = gj.Encoder(backend="golden")
     quant_zz, huff = golden._tables(params)
     plan = ctx.plan
-    gold = golden.encode(raw, params, image)
     y64, eps = golden_quotients(raw, image, plan, quant_zz)
     coeff_k = ctx.coefficients(ctx.upload(raw)).cpu().numpy()
     n_ties, tie_segs = tie_segments(plan, coeff_k, np.rint(y64), y64,
@@ -1235,7 +1237,18 @@ def golden_check(gj, ctx, raw, params, image, data: bytes, what: str):
                         *golden._to_scan_bodies(plan, segs)) != data:
         fail(f"{what}: the stream differs from the golden entropy coder's "
              "on the kernels' own coefficients")
-    del coeff_k, segs
+    return n_ties, tie_segs
+
+
+def golden_check(gj, ctx, raw, params, image, data: bytes, what: str):
+    """The stream against the golden coder: :func:`coefficient_check`,
+    byte-equal to the golden encoder's in every segment without a .5 tie,
+    golden-decoded PSNR (against the raw input, in its own format) within
+    PSNR_DB. Returns a summary string."""
+    plan = ctx.plan
+    gold = gj.Encoder(backend="golden").encode(raw, params, image)
+    n_ties, tie_segs = coefficient_check(gj, ctx, raw, params, image, data,
+                                         what)
     bad = differing_segments(plan, data, gold, tie_segs)
     dec = gj.Decoder(backend="golden")
     dec.set_output_format(image.color_space, image.pixel_format)
@@ -3032,6 +3045,137 @@ def phase_parallel(gj, img: np.ndarray, data: bytes, card: str) -> dict:
     return sharded
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the bench entry points
+# ---------------------------------------------------------------------------
+
+#: phase 16: the depth of the bench run in a subprocess
+BENCH16_ITERS = 6
+
+
+def check_bench_line(proc, card: str) -> dict:
+    """Wait for phase 16's ``tools.bench`` subprocess; fail unless it
+    exited 0 with every key of the line, a number for every time and the
+    route gate's launches; its line."""
+    from gpujpeg_tpu_torch.tools import bench
+    out, err = proc.communicate(timeout=600)
+    if proc.returncode != 0:
+        fail(f"phase 16: tools.bench exited {proc.returncode}: {err[-3000:]}")
+    line = json.loads(out.strip().splitlines()[-1])
+    if tuple(line) != bench.LINE_KEYS:
+        fail(f"phase 16: tools.bench's line has keys {list(line)}, expected "
+             f"{list(bench.LINE_KEYS)}")
+    times = [k for k in bench.LINE_KEYS if k.endswith(("_ms", "_s"))
+             or k in ("value", "vs_baseline")]
+    if not all(isinstance(line[k], float) and line[k] > 0 for k in times):
+        fail(f"phase 16: tools.bench's times {[line[k] for k in times]}")
+    runs = line["launches"]["runs"]
+    want = {k.__name__: n * runs for k, n in {
+        **bench.ENCODE_ROUTE, **bench.DECODE_ROUTE}.items()}
+    want["runs"] = runs
+    if line["launches"] != want or line["card"] != card:
+        fail(f"phase 16: tools.bench's launches {line['launches']} "
+             f"(expected {want}) or card {line['card']!r}")
+    for s in err.splitlines():
+        if s.startswith(("route gate", "first call", "round-trip",
+                         "cross-check")):
+            print(f"phase 16: tools.bench: {s}", flush=True)
+    return line
+
+
+def phase_bench(gj, card: str) -> dict:
+    """Phase 16: ``python -m gpujpeg_tpu_torch.tools.bench`` in a
+    subprocess (``BENCH_ITERS`` = :data:`BENCH16_ITERS`; its line's keys,
+    times and route launches checked) beside, in this process, the first
+    16K encode and decode on the card (``tools.bench_suite.bench_res("16K",
+    3)``) with the launch counts set to 0 before it: each kernel of the
+    route launched 5 times (the first call, a warm-up and 3 runs), the
+    first encode's peak memory within ``Encoder.max_memory``, the stream
+    held to golden by :func:`coefficient_check` (E1's coefficients under
+    the tie rule, the stream equal to the golden entropy coder's on
+    them), and ``Decoder.decode`` of it to the stream's colour space
+    within 1 of the golden decoder's (the IDCT rule before the colour
+    transform). Returns the 16K run's launches."""
+    from gpujpeg_tpu_torch.ops.pipeline import _EncContext
+    from gpujpeg_tpu_torch.stream.reader import read_image
+    from gpujpeg_tpu_torch.tools import bench, bench_suite
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "gpujpeg_tpu_torch.tools.bench"], cwd=root,
+        env=dict(os.environ, BENCH_ITERS=str(BENCH16_ITERS)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True)
+    try:
+        H, W = bench_suite.RES["16K"]
+        img = make_image(H, W)
+        route = {**bench.ENCODE_ROUTE, **bench.DECODE_ROUTE}
+        for k in route:
+            k.launches = 0
+        t0 = time.perf_counter()
+        row, data = bench_suite.bench_res("16K", 3, img=img)
+        res_s = time.perf_counter() - t0
+        launches = {k.__name__: k.launches for k in route}
+        want = {k.__name__: 5 * n for k, n in route.items()}
+        if launches != want:
+            fail(f"phase 16: 16K launches {launches}, expected {want}")
+        if row["encode_peak_bytes"] > row["max_memory"]:
+            fail(f"phase 16: the 16K encode's peak {row['encode_peak_bytes']} "
+                 f"B passes Encoder.max_memory {row['max_memory']} B")
+        torch.cuda.empty_cache()
+
+        params, image, plan = setup(gj, H, W)
+        if params.restart_interval != row["restart_interval"]:
+            fail(f"phase 16: interval {params.restart_interval}, the suite's "
+                 f"{row['restart_interval']}")
+        quant_zz, huff = gj.Encoder(backend="golden")._tables(params)
+        ctx = _EncContext(plan, quant_zz, huff, torch.device("cuda"))
+        n_ties, tie_segs = coefficient_check(
+            gj, ctx, img.reshape(-1), params, image, data, "phase 16: 16K")
+        del ctx
+        torch.cuda.empty_cache()
+        cs = read_image(data).color_space
+        outs = {}
+        for backend, ocs in (("torch", cs), ("golden", cs),
+                             ("torch", gj.ColorSpace.RGB)):
+            dd = gj.Decoder(backend=backend, device="cuda")
+            dd.set_output_format(ocs, gj.PixelFormat.PF_444_U8_P012)
+            outs[backend, ocs] = dd.decode(data)[0].reshape(H, W, 3)
+        d_id = np.abs(outs["torch", cs].astype(np.int16)
+                      - outs["golden", cs])
+        p_t = psnr(outs["torch", gj.ColorSpace.RGB], img)
+        del outs
+        print(f"phase 16: 16K {W}x{H} (interval {row['restart_interval']}, "
+              f"{plan.n_segments} segments, {len(data)} bytes), first call "
+              f"to the end of bench_res {res_s:.1f} s: launches {launches}; "
+              f"{card}: encode {row['encode_device_ms']:.4f} ms, decode "
+              f"{row['decode_device_ms']:.4f} ms (CUDA events, 3 runs); "
+              f"the first encode's peak {row['encode_peak_bytes']} B "
+              f"({row['encode_peak_bytes'] / (W * H):.2f} B a pixel) within "
+              f"Encoder.max_memory {row['max_memory']} B; equal to the "
+              f"golden entropy coder's stream of the kernels' coefficients, "
+              f"{n_ties} of those at .5 ties of the golden DCT in "
+              f"{len(tie_segs)} segments; decoded, {int((d_id != 0).sum())} "
+              f"values differ from the golden decoder's before the colour "
+              f"transform (max |d| {int(d_id.max())}); PSNR {p_t:.4f} dB",
+              flush=True)
+        if d_id.max() > 1:
+            fail("phase 16: the 16K decode differs from golden by more than "
+                 "1 before the colour transform")
+        del d_id, img
+        line = check_bench_line(proc, card)
+    finally:
+        if proc.poll() is None:   # with the first-call processes it started
+            os.killpg(proc.pid, 9)
+            proc.wait()
+    print(f"phase 16: tools.bench (BENCH_ITERS={BENCH16_ITERS}, run beside "
+          f"the 16K check, so its times are not measurements): "
+          f"{json.dumps(line)}", flush=True)
+    print(f"phase 16: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a "
@@ -3040,10 +3184,11 @@ def main() -> None:
     import gpujpeg_tpu_torch as gj
     from gpujpeg_tpu_torch import _build
     from gpujpeg_tpu_torch.ops.pipeline import _EncContext, upload_rgb
+    from gpujpeg_tpu_torch.tools import card_line
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    card = card_line()
+    card = card_line(torch.device("cuda", 0))
     print(f"phase 1: {card}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}; {torch.cuda.get_device_name(0)}",
           flush=True)
@@ -3098,9 +3243,11 @@ def main() -> None:
     launches.update(slaunches)
     batch_rows = phase_batch(gj, img, data, card)
     sharded = phase_parallel(gj, img, data, card)
+    bench16 = phase_bench(gj, card)
     for r in rows:
         r["launches"] = launches[r["name"]]
         r["sharded_launches"] = sharded.get(r["name"], {})
+        r["bench16k_launches"] = bench16.get(r["name"], 0)
     print(json.dumps({"batch": batch_rows}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

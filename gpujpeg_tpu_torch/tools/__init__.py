@@ -1,5 +1,17 @@
 """Measurement tools of the port: the counterparts of the JAX package's
-stage-1 probe scripts, each runnable as a module.
+bench entry points and stage-1 probe scripts, each runnable as a module.
+
+* :mod:`.bench` (``bench.py``): the headline line, the 8K Q75 encode's
+  device time beside the GTX 3080's, with the decode, the end-to-end
+  times and the first call, behind the route gate;
+* :mod:`.bench_suite` (``bench_suite.py``): HD to 16K, the video batch
+  and the Q10-Q100 sweep;
+* :mod:`.perf_host` (``scripts/perf_host.py``): the host stages of the
+  single-call walls, no card needed.
+
+The first two take ``--device cpu`` (and a small ``--height``/
+``--width``) for the tests, where every time is null; ``perf_host``
+takes ``H W``. The probes:
 
 * :mod:`.perf_stage1` (``scripts/perf_stage1.py``): the card's copy rate
   (``copy_bytes`` against ``Tensor.clone()``), E12 on the script's
@@ -22,6 +34,8 @@ reformatter (APP13 segment info added to a foreign stream).
 from __future__ import annotations
 
 import argparse
+import os
+import subprocess
 import time
 
 import numpy as np
@@ -35,18 +49,50 @@ HEIGHT, WIDTH = 4320, 7680
 HOLD_CYCLES_PER_RUN = 400_000
 
 
-def bench_frame(H: int, W: int, seed: int = 7) -> np.ndarray:
+#: rows of :func:`bench_frame` built at a time (its float64 temporaries
+#: take about 100 B a pixel of a band: 0.8 GB a band at 16K)
+BAND_ROWS = 512
+
+
+def bench_frame(H: int, W: int, seed: int = 7,
+                band_rows: int = BAND_ROWS) -> np.ndarray:
     """The JAX package's bench frame (bench.make_image): smooth colour
-    gradients plus Gaussian noise, (H, W, 3) uint8 from a numpy seed."""
+    gradients plus Gaussian noise, (H, W, 3) uint8 from a numpy seed.
+    Built ``band_rows`` rows at a time with the same recipe and one
+    generator drawn in row order, so the bytes are those of the whole
+    frame built at once, and a 16K frame needs no 3 GB of temporaries."""
     rng = np.random.default_rng(seed)
-    y, x = np.mgrid[0:H, 0:W]
-    img = np.stack([
-        128 + 90 * np.sin(x / 23.0) * np.cos(y / 17.0),
-        128 + 80 * np.cos(x / 31.0 + 1.0) * np.sin(y / 11.0),
-        128 + 70 * np.sin((x + y) / 41.0),
-    ], axis=-1)
-    img += rng.normal(0, 3.0, img.shape)
-    return np.clip(img, 0, 255).astype(np.uint8)
+    out = np.empty((H, W, 3), np.uint8)
+    for y0 in range(0, H, band_rows):
+        y, x = np.mgrid[y0:min(H, y0 + band_rows), 0:W]
+        img = np.stack([
+            128 + 90 * np.sin(x / 23.0) * np.cos(y / 17.0),
+            128 + 80 * np.cos(x / 31.0 + 1.0) * np.sin(y / 11.0),
+            128 + 70 * np.sin((x + y) / 41.0),
+        ], axis=-1)
+        img += rng.normal(0, 3.0, img.shape)
+        out[y0:y0 + len(img)] = np.clip(img, 0, 255).astype(np.uint8)
+    return out
+
+
+def card_line(dev: torch.device) -> str:
+    """``nvidia-smi``'s name and power limit of ``dev``'s card (``cpu`` on
+    the CPU); raise if ``nvidia-smi`` fails."""
+    if dev.type != "cuda":
+        return "cpu"
+    index = dev.index
+    if index is None:   # the current device, without making a context
+        index = (torch.cuda.current_device() if torch.cuda.is_initialized()
+                 else 0)
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES", "").split(",")
+    if index < len(visible) and visible[index].strip():
+        index = visible[index].strip()
+    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader", "-i", str(index)],
+                       capture_output=True, text=True, timeout=60)
+    if r.returncode != 0 or not r.stdout.strip():
+        raise RuntimeError(f"nvidia-smi failed: {r.stderr.strip()}")
+    return r.stdout.strip().splitlines()[0]
 
 
 def parse_args(description: str, stages: tuple,
