@@ -182,11 +182,29 @@ the first failure:
    tie rule and the stream equal to the golden entropy coder's on them;
    ``Decoder.decode`` of the stream to its own colour space within 1 of
    the golden decoder's; the phase timed.
+17. the soak on the card (``gpujpeg_tpu_torch/tools/soak.py``, the
+   counterpart of ``scripts/soak.py``) with the launch counts set to 0
+   before it: the cases of ``SOAK17_FIXED`` in turn, then ``SOAK17_THREADS``
+   threads, each with its own coders, on ``SOAK17_THREAD_CASES`` cases
+   each; every case's stream held to the CPU route's (equal outside .5
+   DCT ties) and to the golden stream's length, its decode to the CPU
+   route's (coefficients exact, bytes within 2) and to the golden
+   decode's, its truncated and flipped streams decoded (equal to the CPU
+   route's or both ``JpegParseError``; a frame over 4x the original
+   decodes or raises ``JpegParseError``, ``oom`` counted), every kernel of
+   the encode and decode routes launched; the phase's time, cases a second
+   and ``oom`` count printed.
+
+The comparison rules (the tie rules, ``card_vs_cpu``, ``decode_parts``)
+live in ``gpujpeg_tpu_torch/tools/checks.py``, shared with the soak; a
+broken rule raises ``CheckError`` there, and the script ends with
+``FAIL``.
 
 The line before the last is a JSON object with every kernel's numbers
 (its time, plain time, bound and launches on its path,
-``sharded_launches``: its launches in each of phase 15's runs, and
-``bench16k_launches``: in phase 16's 16K run), the line
+``sharded_launches``: its launches in each of phase 15's runs,
+``bench16k_launches``: in phase 16's 16K run, and ``soak_launches``: in
+phase 17's soak), the line
 before it phase 14's batch rows; the last line is ``{"ok": true,
 "device": {...}}``. ``chip_smoke.py --rank R PORT DIR LIB`` is phase 15
 (v)'s rank process and is not run by hand.
@@ -202,8 +220,11 @@ import time
 import numpy as np
 import torch
 
+from gpujpeg_tpu_torch.tools.checks import (
+    F32_DOT_REL, F32_EVALS, TIE_EPS, CheckError, card_vs_cpu, context,
+    decode_parts, differing_segments, golden_quotients, tie_segments)
+
 H8K, W8K, QUALITY = 4320, 7680, 75
-TIE_EPS = 1e-4          # |frac(q64) - .5| below which rounding may differ
 PSNR_DB = 0.1
 REPLACES = "gpujpeg_tpu/ops/entropy_v2.py:955"
 REPLACES_E2 = ("gpujpeg_tpu/ops/entropy_v2.py:955 (stage 1) + "
@@ -479,76 +500,6 @@ def stage_ms(enc, ctx, raw, quant_zz, huff) -> np.ndarray:
     return np.diff(t) * 1e3
 
 
-def segment_bytes(info) -> list[bytes]:
-    return [bytes(s.data[lo:hi]) for s in info.scans
-            for lo, hi in s.segments]
-
-
-#: relative error bound of a 64-term float32 dot product summed in any
-#: order, with the float32 rounding of its operator and the bias
-#: subtraction: (64 + 2) * 2**-24 < 2**-17. It also bounds E1's separable
-#: form: a row pass and a column pass of 8 terms, each with its factor's
-#: float32 rounding, stay under about 20 * 2**-24 * (x @ |M| + |b|),
-#: since |D8| (x) |D8| = |M| (Kronecker product of the 8x8 factor), and the
-#: bias subtraction adds one rounding more.
-F32_DOT_REL = 2.0 ** -17
-#: two float32 evaluations of one quotient (E1's kernel and its plain
-#: version, the card and the CPU) each lie within eps = F32_DOT_REL *
-#: (x @ |M| + |b|) / q of the float64 value, so they can round apart
-#: only where the float64 quotient lies within 2 * eps of .5: the
-#: per-coefficient tie rule of phases 3, 4 (256x256), 7 and 9
-F32_EVALS = 2
-
-
-def golden_quotients(raw, image, plan, quant_zz):
-    """(y64, eps) in scan order, each (NB, 64) float64: the quantised DCT
-    values by the golden coder's host preprocess and float64 DCT (the
-    golden coefficients are their ``rint``), and a bound on the error of
-    any float32 evaluation of them, ``F32_DOT_REL * (x @ |M| + |b|)``:
-    the width of the .5 tie in which a float32 DCT may round either
-    way."""
-    from gpujpeg_tpu_torch.ops.blocks import plane_to_blocks
-    from gpujpeg_tpu_torch.ops.preprocess import preprocess
-    from gpujpeg_tpu_torch.tables import fdct_quant_matrix
-    planes = preprocess(raw, image, plan, np)
-    y64, eps = [], []
-    for c in plan.components:
-        M, b = fdct_quant_matrix(quant_zz[c.quant_table_index])
-        x = plane_to_blocks(planes[c.index], np).astype(np.float64)
-        y64.append(x @ M - b)
-        eps.append(F32_DOT_REL * (x @ np.abs(M) + np.abs(b)))
-    return (np.concatenate(y64)[plan.block_plane_idx],
-            np.concatenate(eps)[plan.block_plane_idx])
-
-
-def tie_segments(plan, coeff_a, coeff_b, y64, what: str, eps=TIE_EPS):
-    """(coefficients that differ, segments that hold one) between two
-    (NB, 64) scan-order coefficient arrays; fails unless every
-    difference is 1 at a .5 tie of the float64 value ``y64``: within
-    ``eps`` (a number, or an (NB, 64) array of bounds) of .5."""
-    diff = coeff_a != coeff_b
-    if diff.any():
-        far = np.abs(np.abs(y64[diff] - np.floor(y64[diff])) - 0.5)
-        if np.abs(coeff_a - coeff_b).max() > 1 \
-                or (far > (eps[diff] if np.ndim(eps) else eps)).any():
-            fail(f"{what}: coefficients differ beyond .5 ties")
-    return int(diff.sum()), set(
-        plan.block_segment[np.nonzero(diff.any(axis=1))[0]].tolist())
-
-
-def differing_segments(plan, data_a: bytes, data_b: bytes,
-                       skip: set) -> list[int]:
-    """Restart segments outside ``skip`` whose bytes differ between two
-    streams of one plan; fails if the segment counts differ."""
-    from gpujpeg_tpu_torch.stream.reader import read_image
-    seg_a = segment_bytes(read_image(data_a))
-    seg_b = segment_bytes(read_image(data_b))
-    if len(seg_a) != len(seg_b) or len(seg_a) != plan.n_segments:
-        fail("segment counts differ between two streams of one plan")
-    return [s for s in range(plan.n_segments)
-            if s not in skip and seg_a[s] != seg_b[s]]
-
-
 def phase_encode(gj, img, params, image, plan, card: str,
                  device: str = "cuda") -> dict:
     """Phase 4: the public encode end to end, checked against golden."""
@@ -613,7 +564,7 @@ def phase_encode(gj, img, params, image, plan, card: str,
     s_cpu = gj.Encoder(backend="torch", device="cpu").encode(
         small.reshape(-1), sp, si)
     s_msg = "equals the CPU plain path's" if s_cuda == s_cpu else \
-        card_vs_cpu(gj, small.reshape(-1), sp, si, s_cuda, s_cpu)
+        card_vs_cpu(small.reshape(-1), sp, si, s_cuda, s_cpu)
 
     print(f"phase 4: {card}: encode first call {first_ms:.3f} ms, steady "
           f"{float(np.median(steady)):.3f} ms (median of 5, host clock, "
@@ -697,8 +648,8 @@ def phase_decode_kernels(gj, data: bytes, card: str) -> list[dict]:
     from gpujpeg_tpu_torch.ops import dct, decode
     from gpujpeg_tpu_torch.ops.rgbpack import (
         planes_to_rgb, transform_consts_tensor)
-    info, plan, gold_args, ctx, rows = general_parts(
-        gj, data, out_images(gj)["c"], "cuda")
+    info, plan, gold_args, ctx, rows = decode_parts(
+        data, out_images(gj)["c"], "cuda")
     t = ctx.tables
     H, W = ctx.shape
     d1 = (rows, ctx.seg_start, ctx.seg_count, ctx.block_comp, t.wide,
@@ -862,8 +813,8 @@ def phase_decode(gj, img, data: bytes, card: str) -> dict:
         small.reshape(-1), sp, si)
     s_cuda, _ = dec.decode(s_data)
     s_cpu, _ = gj.Decoder(backend="torch", device="cpu").decode(s_data)
-    info_s, plan_s, _, ctx_s, rows_s = general_parts(
-        gj, s_data, gj.ImageParameters(
+    info_s, plan_s, _, ctx_s, rows_s = decode_parts(
+        s_data, gj.ImageParameters(
             width=256, height=256, color_space=gj.ColorSpace.RGB,
             pixel_format=gj.PixelFormat.PF_444_U8_P012), "cuda")
     coeff_s = ctx_s.coefficients(rows_s).cpu().numpy()
@@ -1019,14 +970,6 @@ def general_configs(gj, img: np.ndarray) -> dict:
     }
 
 
-def context(gj, params, image, device="cuda"):
-    from gpujpeg_tpu_torch.ops.pipeline import _EncContext
-    from gpujpeg_tpu_torch.plan import make_plan
-    quant_zz, huff = gj.Encoder(backend="golden")._tables(params)
-    return _EncContext(make_plan(params, image), quant_zz, huff,
-                       torch.device(device))
-
-
 #: the every-format sweeps of phases 7 and 10: (width, height, sampling,
 #: interleaved), UYVY at the next even width
 SWEEP_SIZES = [(W8K, H8K, 420, True), (1923, 1081, 422, False)]
@@ -1099,7 +1042,7 @@ def phase_general_kernels(gj, img: np.ndarray, configs: dict,
     rows_out = []
     for name in ("a", "c"):
         raw_h, params, image = configs[name]
-        ctx = context(gj, params, image)
+        ctx = context(params, image)
         g, t = ctx.planes, ctx.tables
         raw = pre.upload_raw(raw_h, image, ctx.device)
         e0 = (raw, g)
@@ -1195,7 +1138,7 @@ def phase_general_kernels(gj, img: np.ndarray, configs: dict,
     # E1p on E0's planes of phase 3's 4:4:4 frame equals E1 bit for bit
     # (one separable form, one arithmetic)
     params, image, _ = setup(gj, H8K, W8K)
-    ctx = context(gj, params, image)
+    ctx = context(params, image)
     if not ctx.rgb_route:
         fail("phase 3's plan does not take the E1 route")
     rgb = ctx.upload(img)
@@ -1334,27 +1277,6 @@ def phase_general_encode(gj, configs: dict, card: str) -> dict:
     return launches_a
 
 
-def card_vs_cpu(gj, raw, params, image, a: bytes, b: bytes) -> str:
-    """Two streams of one frame, ``a`` encoded on the card and ``b``
-    through the CPU plain path: fails unless their coefficients differ
-    only at .5 ties (both float32: within ``F32_EVALS * eps``) and the
-    streams only in segments that hold one. Returns a summary."""
-    ca, cb = context(gj, params, image), context(gj, params, image, "cpu")
-    quant_zz, _ = gj.Encoder(backend="golden")._tables(params)
-    y64, eps = golden_quotients(raw, image, ca.plan, quant_zz)
-    n_ties, tie_segs = tie_segments(
-        ca.plan, ca.coefficients(ca.upload(raw)).cpu().numpy(),
-        cb.coefficients(cb.upload(raw)).numpy(), y64,
-        f"{image.width}x{image.height} card vs CPU", F32_EVALS * eps)
-    bad = differing_segments(ca.plan, a, b, tie_segs)
-    if bad:
-        fail(f"{image.width}x{image.height}: the card's stream differs from "
-             "the CPU plain path's beyond .5 ties")
-    return (f"the card's stream differs from the CPU plain path's in "
-            f"{len(tie_segs)} segments with {n_ties} coefficients at .5 "
-            f"ties, in no other")
-
-
 def phase_small(gj) -> None:
     """Phase 9: every colour config at 17x13 and 200x136, interleaved or
     not, encoded on the card and through the CPU plain path: equal
@@ -1382,7 +1304,7 @@ def phase_small(gj) -> None:
             if a != b:
                 print(f"phase 9: {pf_name} {cs_name}->{csi_name} {w}x{h} "
                       f"interleaved {interleaved}: "
-                      f"{card_vs_cpu(gj, raw, params, image, a, b)}",
+                      f"{card_vs_cpu(raw, params, image, a, b)}",
                       flush=True)
     print(f"phase 9: {n} small encodes ({len(SMALL_CONFIGS)} colour configs "
           f"x 17x13, 200x136 x interleaved or not) equal the CPU plain "
@@ -1431,21 +1353,6 @@ def out_images(gj) -> dict:
             "c": im("RGB", "PF_444_U8_P012"),
             "e-rgb": im("RGB", "PF_444_U8_P012"),
             "e": im("YCBCR_BT601_256LVLS", "PF_444_U8_P0P1P2")}
-
-
-def general_parts(gj, data: bytes, out_image, device):
-    """(info, plan, golden decode inputs, decode context, rows on
-    ``device``) of a stream decoded to ``out_image``."""
-    from gpujpeg_tpu_torch.models.decoder import huffman_maps
-    from gpujpeg_tpu_torch.ops.decode import build_rows
-    from gpujpeg_tpu_torch.ops.pipeline import _dec_context
-    from gpujpeg_tpu_torch.stream.reader import read_image
-    info = read_image(data)
-    plan, scan_data, segs = gj.Decoder(backend="golden")._plan_from_info(info)
-    dc, ac = huffman_maps(info)
-    ctx = _dec_context({}, plan, info, dc, ac, out_image, torch.device(device))
-    rows = torch.from_numpy(build_rows(plan, scan_data, segs)).to(device)
-    return info, plan, (plan, scan_data, segs, dc, ac), ctx, rows
 
 
 def split_planes(flat: np.ndarray, plan) -> list:
@@ -1509,7 +1416,7 @@ def phase_general_decode_kernels(gj, streams: dict, main_data: bytes,
     for name in ("a", "c", "d", "e"):
         data = streams[name]
         out_image = outs.get(name, outs["c"])
-        info, plan, gold_args, ctx, rows = general_parts(gj, data, out_image,
+        info, plan, gold_args, ctx, rows = decode_parts(data, out_image,
                                                          "cuda")
         regime = "K5" if rows.shape[1] > V3_WCAP_MAX else "K4"
         print(f"phase 10 ({name}): {len(data)} bytes, {plan.n_blocks} blocks "
@@ -1616,7 +1523,7 @@ def phase_general_decode_kernels(gj, streams: dict, main_data: bytes,
     from gpujpeg_tpu_torch.ops.rgbpack import transform_consts_tensor
     xf_id = transform_consts_tensor((None, None), "cuda")
     for name, data in (("main path", main_data), ("e", streams["e"])):
-        info, plan, _, ctx, rows = general_parts(gj, data, outs["c"], "cuda")
+        info, plan, _, ctx, rows = decode_parts(data, outs["c"], "cuda")
         if not ctx.rgb_route:
             fail(f"{name}: the stream does not take the D2 route")
         coeff = ctx.coefficients(rows)
@@ -1943,7 +1850,7 @@ def phase_small_decode(gj) -> None:
             if np.array_equal(res["cuda"], res["cpu"]):
                 n_eq += 1
                 continue
-            info, plan, _, ctx, rows = general_parts(gj, data, out_image,
+            info, plan, _, ctx, rows = decode_parts(data, out_image,
                                                      "cuda")
             coeff = ctx.coefficients(rows)
             t = ctx.tables
@@ -2229,7 +2136,7 @@ def phase_stage1(gj, img: np.ndarray, card: str) -> tuple[list, dict]:
     # gathered in scan order beforehand and with that gather (plain
     # torch), which E1p does inside its kernel
     params, image, plan = setup(gj, H8K, W8K)
-    ctx = context(gj, params, image)
+    ctx = context(params, image)
     t, g, geo = ctx.tables, ctx.planes, ctx.geo
     planes = pre.preprocess_planes(pre.upload_raw(img, image, dev), g)
     e1p = (planes, t.dct, t.bias, ctx.qdiv, g.blk, g.block_plane_idx)
@@ -3176,6 +3083,61 @@ def phase_bench(gj, card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the soak on the card (tools.soak)
+# ---------------------------------------------------------------------------
+
+#: phase 17's fixed cases, (seed, index): 80x8 and 96x160 RGB 4:4:4 on
+#: the E1 + D2 routes
+SOAK17_FIXED = ((25, 0), (25, 2))
+#: then this many threads, each with its own coders, on as many cases
+#: each of this seed (cases 0-7 of seed 30: E1 + D2 and E0 + E1p + D2p +
+#: D3), so every kernel of the encode and decode routes runs
+SOAK17_THREADS, SOAK17_THREAD_CASES, SOAK17_THREAD_SEED = 2, 4, 30
+
+
+def phase_soak(card: str) -> dict:
+    """Phase 17: ``tools.soak`` on the card, with the route's launch counts
+    set to 0 before it: the cases of :data:`SOAK17_FIXED` in turn, then
+    :data:`SOAK17_THREADS` threads on :data:`SOAK17_THREAD_CASES` cases
+    each; each case held to the CPU route and the golden coder, its
+    corrupt streams decoded (``tools.soak``'s rules). Fails on any failing
+    case and where a kernel of the encode or decode routes did not
+    launch; prints the phase's time, its cases a second and its ``oom``
+    count. Returns the launches."""
+    from gpujpeg_tpu_torch.ops import dct, decode, entropy, preprocess as pre
+    from gpujpeg_tpu_torch.tools import soak
+    kernels = (pre.preprocess_planes, dct.fdct_quant_planes, dct.fdct_quant,
+               entropy.huffman_blocks, entropy.merge_stuff,
+               decode.huffman_decode, dct.idct_rgb, dct.idct_planes,
+               pre.postprocess_planes)
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    runs = [soak.soak(seed, "cuda", index=i) for seed, i in SOAK17_FIXED]
+    runs.append(soak.soak(SOAK17_THREAD_SEED, "cuda",
+                          cases=SOAK17_THREADS * SOAK17_THREAD_CASES,
+                          threads=SOAK17_THREADS))
+    dt = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in kernels}
+    n, oom = sum(r["cases"] for r in runs), sum(r["oom"] for r in runs)
+    lines = [s for r in runs for s in r["lines"]]
+    outcomes = sum((r["outcomes"] for r in runs), soak.Counter())
+    print(f"phase 17: {card}: soak of {n} cases ((seed, index) "
+          f"{SOAK17_FIXED} in turn, "
+          f"then {SOAK17_THREADS} threads x {SOAK17_THREAD_CASES} of seed "
+          f"{SOAK17_THREAD_SEED}) in {dt:.1f} s, {n / dt:.3f} cases/s, "
+          f"{len(lines)} failure lines, {oom} oom; corrupt streams "
+          f"{dict(sorted(outcomes.items()))}; launches {launches}",
+          flush=True)
+    if lines or n != len(SOAK17_FIXED) + SOAK17_THREADS * SOAK17_THREAD_CASES:
+        fail(f"phase 17: the soak failed: {lines[:5]}")
+    if min(launches.values()) < 1:
+        fail(f"phase 17: a kernel of the routes did not launch: {launches}")
+    print(f"phase 17: {dt:.1f} s", flush=True)
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a "
@@ -3244,10 +3206,12 @@ def main() -> None:
     batch_rows = phase_batch(gj, img, data, card)
     sharded = phase_parallel(gj, img, data, card)
     bench16 = phase_bench(gj, card)
+    soak17 = phase_soak(card)
     for r in rows:
         r["launches"] = launches[r["name"]]
         r["sharded_launches"] = sharded.get(r["name"], {})
         r["bench16k_launches"] = bench16.get(r["name"], 0)
+        r["soak_launches"] = soak17.get(r["name"].split("[")[0], 0)
     print(json.dumps({"batch": batch_rows}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -3256,7 +3220,10 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--rank"]:
-        rank_main(int(sys.argv[2]), *sys.argv[3:6])
-    else:
-        main()
+    try:
+        if sys.argv[1:2] == ["--rank"]:
+            rank_main(int(sys.argv[2]), *sys.argv[3:6])
+        else:
+            main()
+    except CheckError as e:
+        fail(str(e))

@@ -4,10 +4,14 @@ All ``csrc/*.cu`` sources compile with ``nvcc`` for ``sm_90a`` into one
 shared library with a plain C interface, which is loaded with ctypes.
 The library is named by a digest of the sources and the headers they
 include (``csrc/*.cuh``) and kept in
-:func:`runtime.kernel_build_dir`, so a second process reuses it. The
-first call of :func:`load_kernels` in a checkout builds it: one ``nvcc``
-per source, all started together, then one link (a few seconds in
-all); nothing is compiled at import.
+:func:`runtime.kernel_build_dir` (the per-user cache), so a second
+process reuses it. The first call of :func:`load_kernels` builds it: one
+``nvcc`` per source, all started together, then one link (a few seconds
+in all); nothing is compiled at import. A lock makes threads that call
+it at once wait for one build and share one loaded library; each build
+writes its objects and library into a directory of its own and renames
+the library into place last, so processes that build the same digest at
+once do not clash either.
 
 Every C entry launches on the stream it is given and returns
 ``cudaGetLastError()`` of its launch. The wrappers in ``ops/`` (and the
@@ -19,12 +23,13 @@ passes that device's current stream and raises on a non-zero return.
 from __future__ import annotations
 
 import ctypes
-import functools
 import glob
 import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
+import threading
 from concurrent.futures import ThreadPoolExecutor
 
 import torch
@@ -76,10 +81,15 @@ def _nvcc() -> str:
 def compile_library(srcs: list[str], so: str) -> None:
     """Compile ``srcs`` with nvcc, one process each, all started
     together, and link them into the shared library ``so``; raise with
-    nvcc's messages if a step fails."""
-    tmp = f"{so}.tmp{os.getpid()}"
+    nvcc's messages if a step fails. The objects and the library are
+    written into a directory of this call's own beside ``so``, and the
+    library is renamed to ``so`` last (atomic), so that concurrent builds
+    of one ``so`` never share a file."""
     nvcc = _nvcc()
-    objs = [f"{tmp}.{i}.o" for i in range(len(srcs))]
+    tmp_dir = tempfile.mkdtemp(prefix=os.path.basename(so) + ".",
+                               dir=os.path.dirname(so))
+    tmp = os.path.join(tmp_dir, os.path.basename(so))
+    objs = [os.path.join(tmp_dir, f"{i}.o") for i in range(len(srcs))]
 
     def run(*args):
         return subprocess.run([nvcc, *NVCC_FLAGS, *args], capture_output=True,
@@ -94,17 +104,20 @@ def compile_library(srcs: list[str], so: str) -> None:
             r = run("-shared", "-o", tmp, *objs)
             if r.returncode != 0:
                 failed.append(f"link:\n{r.stderr}")
+        if not failed:
+            os.replace(tmp, so)
     finally:
-        for o in objs:
-            if os.path.exists(o):
-                os.remove(o)
+        shutil.rmtree(tmp_dir, ignore_errors=True)
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
-    os.replace(tmp, so)
 
 
-def library_path() -> str:
-    """Build the kernel library if needed; return its path."""
+#: serialises the build and the load of the kernel library in a process
+_LOCK = threading.Lock()
+_KERNELS: ctypes.CDLL | None = None
+
+
+def _library_path() -> str:
     srcs = _sources()
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for s in srcs + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
@@ -119,6 +132,13 @@ def library_path() -> str:
     return so
 
 
+def library_path() -> str:
+    """Build the kernel library if needed; return its path. Threads that
+    call it at once wait for the first one's build."""
+    with _LOCK:
+        return _library_path()
+
+
 def bind(lib: ctypes.CDLL, names=tuple(SIGNATURES)) -> ctypes.CDLL:
     """Set the argument and result types of ``lib``'s C entries ``names``
     (all of :data:`SIGNATURES` by default)."""
@@ -129,10 +149,16 @@ def bind(lib: ctypes.CDLL, names=tuple(SIGNATURES)) -> ctypes.CDLL:
     return lib
 
 
-@functools.lru_cache(maxsize=1)
 def load_kernels() -> ctypes.CDLL:
-    """The loaded kernel library (built on first use)."""
-    return bind(ctypes.CDLL(library_path()))
+    """The loaded kernel library (built on first use). Threads that make
+    the first call at once wait for one build and load and get the same
+    library; later calls take no lock."""
+    global _KERNELS
+    if _KERNELS is None:
+        with _LOCK:
+            if _KERNELS is None:
+                _KERNELS = bind(ctypes.CDLL(_library_path()))
+    return _KERNELS
 
 
 def check_launch(name: str, err: int) -> None:

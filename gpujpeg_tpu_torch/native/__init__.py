@@ -12,6 +12,7 @@ import hashlib
 import logging
 import os
 import subprocess
+import threading
 
 import numpy as np
 
@@ -22,6 +23,9 @@ log = logging.getLogger(__name__)
 _SRC = os.path.join(os.path.dirname(__file__), "host_codec.cpp")
 _LIB = None
 _TRIED = False
+#: serialises the first call's build and load: a thread that arrives
+#: during it waits for the library rather than taking the NumPy path
+_LOCK = threading.Lock()
 
 I64 = ctypes.c_int64
 PU8 = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
@@ -61,11 +65,18 @@ def _build() -> str | None:
 
 
 def lib():
-    """The loaded native library, or None when unavailable."""
+    """The loaded native library, or None when unavailable. Threads that
+    make the first call at once wait for one build and load."""
     global _LIB, _TRIED
-    if _TRIED:
-        return _LIB
-    _TRIED = True
+    if not _TRIED:
+        with _LOCK:
+            if not _TRIED:
+                _LIB = _load()
+                _TRIED = True
+    return _LIB
+
+
+def _load():
     if os.environ.get("GPUJPEG_TPU_TORCH_NO_NATIVE"):
         return None
     so_path = _build()
@@ -95,8 +106,7 @@ def lib():
     L.gj_build_rows.argtypes = [PU8, I64, PI64, PI64, I64, PU32, I64]
     L.gj_build_rows_t.restype = I64
     L.gj_build_rows_t.argtypes = [PU8, I64, PI64, PI64, I64, PU32, I64, I64]
-    _LIB = L
-    return _LIB
+    return L
 
 
 # ---------------------------------------------------------------------------

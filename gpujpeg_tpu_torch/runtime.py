@@ -3,15 +3,15 @@ directory.
 
 The JAX reference also wires JAX's persistent compilation cache here;
 the port has no such cache. Its CUDA kernels are compiled once per
-source digest into :func:`kernel_build_dir` (``ops/_build.py``), and the
-native host codec into :func:`user_cache_dir` (``native/``).
+source digest into :func:`kernel_build_dir` (``_build.py``), and the
+native host codec into :func:`user_cache_dir` (``native/``): both live in
+the per-user cache, so an installed package that another user owns
+builds and loads its kernels all the same.
 """
 from __future__ import annotations
 
 import os
 import stat
-
-_PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 
 
 def user_cache_dir() -> str:
@@ -37,9 +37,9 @@ def verify_private_dir(path: str) -> bool:
 
 def kernel_build_dir() -> str:
     """Directory (0700) that holds the compiled CUDA kernel library:
-    ``GPUJPEG_TPU_TORCH_BUILD_DIR`` if set, else ``csrc/build`` inside
-    the package (listed in ``.gitignore``)."""
+    ``GPUJPEG_TPU_TORCH_BUILD_DIR`` if set, else ``kernels`` in
+    :func:`user_cache_dir`."""
     path = os.environ.get("GPUJPEG_TPU_TORCH_BUILD_DIR") or os.path.join(
-        _PKG_DIR, "csrc", "build")
+        user_cache_dir(), "kernels")
     os.makedirs(path, mode=0o700, exist_ok=True)
     return path

@@ -30,6 +30,11 @@ A kernel's exception is not caught.
 
 :mod:`.reformat` is a host tool, the copy of the JAX package's JPEG
 reformatter (APP13 segment info added to a foreign stream).
+
+:mod:`.soak` (``scripts/soak.py``) runs random geometries and corrupt
+streams through the card's coders, each case held to the CPU route and
+the golden coder by the rules of :mod:`.checks`, which ``chip_smoke.py``
+shares.
 """
 from __future__ import annotations
 

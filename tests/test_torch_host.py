@@ -41,7 +41,8 @@ def test_port_imports_without_jax():
     assert r.returncode == 0 and "clean" in r.stdout, r.stderr[-2000:]
     mods = set(r.stdout.split()[1:])
     for name in ("cli", "__main__", "utils.image_io", "tools.reformat",
-                 "tools.perf_e12", "tools.perf_pixels",
+                 "tools.perf_e12", "tools.perf_pixels", "tools.soak",
+                 "tools.checks",
                  "examples.video_pipeline", "parallel.sharded",
                  "parallel.multihost", "examples.sharded_encode",
                  "examples.multihost_video"):
@@ -75,6 +76,28 @@ def test_package_data_carries_every_kernel_include():
     missing = [n for n in sorted(needed)
                if not any(fnmatch.fnmatch(n, g) for g in globs)]
     assert not missing, missing
+
+
+def test_pyproject_installs_the_port_with_torch():
+    """``pip install .[torch]`` pulls what the port imports (torch and
+    numpy) without changing the JAX package's base dependencies, and the
+    port's two commands are installed."""
+    import tomllib
+    with open(os.path.join(REPO, "pyproject.toml"), "rb") as f:
+        project = tomllib.load(f)["project"]
+    assert project["dependencies"] == ["jax", "numpy"]
+    assert sorted(project["optional-dependencies"]["torch"]) == [
+        "numpy", "torch"]
+    scripts = project["scripts"]
+    assert scripts["gpujpegtool-torch"] == "gpujpeg_tpu_torch.cli:main"
+    assert scripts["gpujpeg-reformat-torch"] == (
+        "gpujpeg_tpu_torch.tools.reformat:main")
+    for target in (scripts["gpujpegtool-torch"],
+                   scripts["gpujpeg-reformat-torch"]):
+        mod, fn = target.split(":")
+        path = os.path.join(REPO, *mod.split(".")) + ".py"
+        with open(path) as f:
+            assert f"def {fn}(" in f.read(), target
 
 
 @pytest.mark.parametrize("ri", [0, 2, 32])
