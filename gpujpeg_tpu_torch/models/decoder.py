@@ -37,6 +37,7 @@ from ..ops.preprocess import postprocess
 from ..params import ImageParameters, Parameters
 from ..plan import make_plan
 from ..stream import reader as stream_reader
+from ..trace import Tracer
 from ..types import ColorSpace, PixelFormat, SamplingFactor
 
 BACKENDS = ("torch", "golden")
@@ -210,7 +211,8 @@ class Decoder:
         device. On the card the rows go up through pinned memory and each
         frame comes back into pinned memory of its own. A corrupt stream
         raises :class:`JpegParseError` there and leaves the decoder
-        usable. Per-frame stats are not recorded."""
+        usable. Per-frame stats are not recorded; with :attr:`perf_stats`
+        the batch is one root span."""
         from ..ops.pipeline import (PinnedRing, decode_collect,
                                     decode_launch, decode_prep)
         if window < 1:
@@ -228,6 +230,7 @@ class Decoder:
                     raw = raw.numpy()
             out.append((raw, out_image))
 
+        tr = Tracer(self.device, "gpujpeg.dec") if self.perf_stats else None
         try:
             for data in datas:
                 job = self._job(stream_reader.read_image(data))
@@ -246,6 +249,8 @@ class Decoder:
         finally:
             if staging is not None:
                 staging.wait()
+            if tr is not None:
+                tr.finish()
         return out
 
     def set_output_format(self, color_space: ColorSpace,
@@ -257,21 +262,40 @@ class Decoder:
 
     # ------------------------------------------------------------------
     def decode(self, data: bytes) -> tuple[np.ndarray, ImageParameters]:
-        t0 = time.perf_counter()
-        info = stream_reader.read_image(data)
-        self.stats.duration_stream = (time.perf_counter() - t0) * 1e3
+        """Decode one stream: (the raw frame, its ImageParameters). With
+        :attr:`perf_stats` the call's spans are recorded
+        (:mod:`gpujpeg_tpu_torch.trace`)."""
+        tr = Tracer(self.device, "gpujpeg.dec") if self.perf_stats else None
+        try:
+            return self._decode(data, tr)
+        finally:
+            if tr is not None:
+                tr.finish()
 
+    def _decode(self, data: bytes, tr: Tracer | None):
+        t0 = (tr.open("gpujpeg.dec.stream") if tr is not None
+              else time.perf_counter_ns())
+        info = stream_reader.read_image(data)
+        t1 = tr.close() if tr is not None else time.perf_counter_ns()
+        self.stats.duration_stream = (t1 - t0) * 1e-6
+
+        if tr is not None:
+            tr.open("gpujpeg.dec.plan")
         job = self._job(info)
+        if tr is not None:
+            tr.close()
         if self._golden_route(job.plan):
             return self._decode_golden(*job), job.out_image
 
         from ..ops.pipeline import decode_device
-        raw = decode_device(self, *job)
+        raw = decode_device(self, *job, tr)
         if self.output_to_device:
             return raw, job.out_image
-        t0 = time.perf_counter()
+        t0 = (tr.open("gpujpeg.dec.memory_from") if tr is not None
+              else time.perf_counter_ns())
         host = raw.cpu().numpy()
-        self.stats.duration_memory_from = (time.perf_counter() - t0) * 1e3
+        t1 = tr.close(host.nbytes) if tr is not None else time.perf_counter_ns()
+        self.stats.duration_memory_from = (t1 - t0) * 1e-6
         return host, job.out_image
 
     def _job(self, info) -> "_Job":

@@ -22,6 +22,7 @@ from ..params import ImageParameters, Parameters
 from ..plan import CoderPlan, make_plan
 from ..stream.writer import HeaderType, JpegWriter
 from ..tables import default_huffman_table, quant_table_zz
+from ..trace import Tracer
 from ..types import ComponentType, HuffmanType, image_calculate_size
 
 BACKENDS = ("torch", "golden")
@@ -152,16 +153,31 @@ class Encoder:
         device-pointer inputs, gpujpeg_encoder.c:353-395), such as
         ``Decoder.decode_to_device``'s frame; one on another device is
         copied there once. The host route (``restart_interval == 0``)
-        brings a tensor to the host once."""
+        brings a tensor to the host once. With ``params.perf_stats`` the
+        call's spans are recorded (:mod:`gpujpeg_tpu_torch.trace`)."""
+        tr = Tracer(self.device, "gpujpeg.enc") if params.perf_stats else None
+        try:
+            return self._encode(raw, params, image, tr)
+        finally:
+            if tr is not None:
+                tr.finish()
+
+    def _encode(self, raw, params: Parameters, image: ImageParameters,
+                tr: Tracer | None) -> bytes:
+        if tr is not None:
+            tr.open("gpujpeg.enc.plan")
         plan = make_plan(params, image)
         quant_zz, huff = self._tables(params)
+        if tr is not None:
+            tr.close()
 
         # restart_interval == 0 means one segment per whole scan: there is
         # no segment parallelism, so the host Huffman coder encodes it,
         # exactly like the reference (gpujpeg_encoder.c:437-446)
         if self.backend == "torch" and params.restart_interval > 0:
             from ..ops.pipeline import encode_segments_device
-            result = encode_segments_device(self, raw, plan, quant_zz, huff)
+            result = encode_segments_device(self, raw, plan, quant_zz, huff,
+                                            tr)
         else:
             if isinstance(raw, torch.Tensor):   # checked, to the host once
                 raw = upload_raw(raw, image, "cpu").numpy()
@@ -170,9 +186,11 @@ class Encoder:
             result = self._to_scan_bodies(plan, seg_bytes)
         scan_bodies, seg_sizes_by_scan = result
 
-        t0 = time.perf_counter()
+        t0 = (tr.open("gpujpeg.enc.stream") if tr is not None
+              else time.perf_counter_ns())
         out = self._assemble(plan, quant_zz, huff, scan_bodies, seg_sizes_by_scan)
-        self.stats.duration_stream = (time.perf_counter() - t0) * 1e3
+        t1 = tr.close() if tr is not None else time.perf_counter_ns()
+        self.stats.duration_stream = (t1 - t0) * 1e-6
         return out
 
     def encode_batch(self, raws, params: Parameters,
@@ -185,15 +203,21 @@ class Encoder:
         (``pipeline.encode_batch_device``); ``restart_interval == 0`` and
         the golden backend encode frame by frame. Frames may be host
         bytes, NumPy arrays or tensors, as :meth:`encode` takes them.
-        Per-frame stats are not recorded."""
+        Per-frame stats are not recorded; with ``params.perf_stats`` the
+        pipelined batch is one root span."""
         if self.backend != "torch" or params.restart_interval <= 0:
             return [self.encode(r, params, image) for r in raws]
         from ..ops.pipeline import encode_batch_device
-        plan = make_plan(params, image)
-        quant_zz, huff = self._tables(params)
-        return [self._assemble(plan, quant_zz, huff, *result)
-                for result in encode_batch_device(self, raws, plan, quant_zz,
-                                                  huff)]
+        tr = Tracer(self.device, "gpujpeg.enc") if params.perf_stats else None
+        try:
+            plan = make_plan(params, image)
+            quant_zz, huff = self._tables(params)
+            return [self._assemble(plan, quant_zz, huff, *result)
+                    for result in encode_batch_device(self, raws, plan,
+                                                      quant_zz, huff)]
+        finally:
+            if tr is not None:
+                tr.finish()
 
     _RST = tuple(bytes((0xFF, 0xD0 + i)) for i in range(8))
 

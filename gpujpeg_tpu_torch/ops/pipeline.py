@@ -62,18 +62,23 @@ the CPU there is no stream and no pinned memory and the same code runs
 frame after frame. The single-frame :func:`encode_segments_device` and
 :func:`decode_device` keep their pageable transfers.
 
-**Stage statistics.** With ``Parameters.perf_stats`` (encode) or
-``Decoder.perf_stats`` (decode) a :class:`StageClock` marks the stage
-boundaries: on the card a CUDA event recorded on the stream between two
-launches, read after the one sync at the end; on the CPU the host
-clock. The encode fills ``duration_memory_to`` (upload),
+**Stage statistics and spans.** With ``Parameters.perf_stats`` (encode)
+or ``Decoder.perf_stats`` (decode) the call's :class:`trace.Tracer`
+opens a span around each host step of :func:`encode_segments_device`
+and :func:`decode_device` (the context, the upload or the rows' build
+and upload, the kernels' enqueue, the wait, the copy back) and marks the
+stage boundaries on the device: on the card a CUDA event recorded on the
+stream between two launches, read after the one sync at the end; on the
+CPU the host clock. The encode fills ``duration_memory_to`` (upload),
 ``duration_preprocessor`` (E0; 0 on the E1 route, whose colour
 transform is inside E1), ``duration_dct_quantization`` (E1 or E1p),
 ``duration_huffman_coder`` (E2 + E3) and ``duration_memory_from``
 (compaction and copy back); the decode ``duration_huffman_coder`` (D1),
 ``duration_dct_quantization`` (D2 or D2p) and ``duration_postprocessor``
-(D3; 0 on the D2 route). Without it no event is recorded and nothing
-more is synced.
+(D3; 0 on the D2 route). Without it no span is opened, no event is
+recorded and nothing more is synced. The batch paths get no span of
+their own: ``Encoder.encode_batch`` and ``Decoder.decode_batch`` are one
+root span each.
 
 The reference's TPU machinery has no counterpart, and why:
 
@@ -111,6 +116,7 @@ import torch
 
 from ..plan import CoderPlan
 from ..tables import decode_device_tables, device_tables
+from ..trace import Tracer
 from .dct import fdct_quant, fdct_quant_planes, idct_planes, idct_rgb
 from .decode import (
     build_dec_tables_v2, build_rows, check_cover, huffman_decode,
@@ -125,35 +131,7 @@ from .rgbpack import (
     unpack_eligible)
 
 
-class StageClock:
-    """Stage boundaries of one encode or decode with perf stats on: CUDA
-    events recorded on the current stream of the coder's device (on the
-    card), host clock readings (on the CPU)."""
-
-    def __init__(self, device: torch.device):
-        self.device = device
-        self.cuda = device.type == "cuda"
-        self.marks: list = []
-
-    def mark(self) -> None:
-        if self.cuda:
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record(torch.cuda.current_stream(self.device))
-            self.marks.append(ev)
-        else:
-            self.marks.append(time.perf_counter())
-
-    def durations(self) -> list[float]:
-        """ms between consecutive marks (on the card after one sync on
-        the last event)."""
-        pairs = list(zip(self.marks, self.marks[1:]))
-        if self.cuda:
-            self.marks[-1].synchronize()
-            return [a.elapsed_time(b) for a, b in pairs]
-        return [(b - a) * 1e3 for a, b in pairs]
-
-
-def _mark(clock: StageClock | None) -> None:
+def _mark(clock: Tracer | None) -> None:
     if clock is not None:
         clock.mark()
 
@@ -256,7 +234,7 @@ class _EncContext:
             return upload_rgb(raw, self.plan, self.device, staging)
         return upload_raw(raw, self.plan.image, self.device, staging)
 
-    def run(self, x: torch.Tensor, clock: StageClock | None = None,
+    def run(self, x: torch.Tensor, clock: Tracer | None = None,
             rst: torch.Tensor | None = None,
             has_rst: torch.Tensor | None = None):
         """:meth:`upload`'s tensor -> (out, out_len, seg_bits, n_ff) of
@@ -270,7 +248,7 @@ class _EncContext:
         return out
 
     def coefficients(self, x: torch.Tensor,
-                     clock: StageClock | None = None) -> torch.Tensor:
+                     clock: Tracer | None = None) -> torch.Tensor:
         """:meth:`upload`'s tensor -> (NB, 64) int32 scan-order
         coefficients, by E1 or by E0 + E1p (``clock`` marked between the
         two, or before E1)."""
@@ -282,7 +260,7 @@ class _EncContext:
         return self.coefficients_planes(x, clock)
 
     def coefficients_planes(self, raw: torch.Tensor,
-                            clock: StageClock | None = None
+                            clock: Tracer | None = None
                             ) -> torch.Tensor:
         """Flat raw bytes (:func:`preprocess.upload_raw`) -> scan-order
         coefficients by E0 + E1p, for any plan."""
@@ -331,27 +309,45 @@ def upload_rgb(raw, plan: CoderPlan, device: torch.device,
 
 
 def encode_segments_device(encoder, raw, plan: CoderPlan, quant_zz: dict,
-                           huff: dict):
+                           huff: dict, tr: Tracer | None = None):
     """Run the device encoder; returns (scan_bodies, seg_sizes_by_scan):
     per scan, the ready-to-emit entropy bytes (RST markers included) and
-    the per-segment byte sizes (for APP13 segment-info back-patching)."""
+    the per-segment byte sizes (for APP13 segment-info back-patching).
+    ``tr``, the call's tracer with perf stats on, gets the spans and
+    marks and the stats their stage durations."""
+    if tr is not None:
+        tr.open("gpujpeg.enc.context")
     ctx = _enc_context(encoder._contexts, plan, quant_zz, huff,
                        encoder.device)
-    clock = StageClock(ctx.device) if plan.params.perf_stats else None
-    t0 = time.perf_counter()
-    _mark(clock)
+    if tr is not None:
+        tr.close()
+        t0 = tr.open("gpujpeg.enc.upload")
+        tr.mark()
+    else:
+        t0 = time.perf_counter_ns()
     x = ctx.upload(raw)
-    _mark(clock)
-    out, out_len, _seg_bits, _n_ff = ctx.run(x, clock)
+    if tr is not None:
+        tr.mark()
+        tr.close(0 if isinstance(raw, torch.Tensor)
+                 and raw.device == x.device else x.nbytes)
+        tr.open("gpujpeg.enc.launch")
+    out, out_len, _seg_bits, _n_ff = ctx.run(x, tr)
+    if tr is not None:
+        tr.close()
+        tr.open("gpujpeg.enc.wait")
     out_len_h = out_len.cpu().numpy()
-    encoder.stats.duration_in_gpu = (time.perf_counter() - t0) * 1e3
+    t1 = tr.close() if tr is not None else time.perf_counter_ns()
+    encoder.stats.duration_in_gpu = (t1 - t0) * 1e-6
+    if tr is not None:
+        tr.open("gpujpeg.enc.memory_from")
     result = _split_scan_bodies(plan, ctx, out, out_len_h)
-    if clock is not None:
-        clock.mark()
+    if tr is not None:
+        tr.mark()
+        tr.close(sum(map(len, result[0])))
         st = encoder.stats
         (st.duration_memory_to, st.duration_preprocessor,
          st.duration_dct_quantization, st.duration_huffman_coder,
-         st.duration_memory_from) = clock.durations()
+         st.duration_memory_from) = tr.durations()
     return result
 
 
@@ -473,7 +469,7 @@ class _DecContext:
                               t.huffval, t.dc_slot, t.ac_slot)
 
     def pixels(self, coeff: torch.Tensor,
-               clock: StageClock | None = None) -> torch.Tensor:
+               clock: Tracer | None = None) -> torch.Tensor:
         """Scan-order coefficients -> the flat uint8 raw frame, by D2 or
         by D2p + D3 (``clock`` marked between the two, or after D2)."""
         t = self.tables
@@ -489,7 +485,7 @@ class _DecContext:
         return postprocess_planes(planes, self.out)
 
     def run(self, rows: torch.Tensor,
-            clock: StageClock | None = None) -> torch.Tensor:
+            clock: Tracer | None = None) -> torch.Tensor:
         """(S, wcap) int32 rows on the context's device -> the flat uint8
         raw frame; ``clock`` is marked after D1, the IDCT stage and D3."""
         coeff = self.coefficients(rows)
@@ -523,16 +519,25 @@ def _dec_context(cache: dict, plan: CoderPlan, info, dc_by_comp, ac_by_comp,
 
 
 def decode_prep(decoder, plan: CoderPlan, info, scan_data,
-                segments_by_scan, dc_by_comp, ac_by_comp, out_image):
+                segments_by_scan, dc_by_comp, ac_by_comp, out_image,
+                tr: Tracer | None = None):
     """The host half of a device decode: (the decode context, the (S,
-    wcap) int32 segment rows)."""
+    wcap) int32 segment rows); ``tr`` gets a span around each."""
+    if tr is not None:
+        tr.open("gpujpeg.dec.context")
     ctx = _dec_context(decoder._contexts, plan, info, dc_by_comp, ac_by_comp,
                        out_image, decoder.device)
-    return ctx, build_rows(plan, scan_data, segments_by_scan)
+    if tr is not None:
+        tr.close()
+        tr.open("gpujpeg.dec.rows")
+    rows = build_rows(plan, scan_data, segments_by_scan)
+    if tr is not None:
+        tr.close(rows.nbytes)
+    return ctx, rows
 
 
 def _dec_run(decoder, ctx: _DecContext, rows_dev: torch.Tensor,
-             clock: StageClock | None = None) -> torch.Tensor:
+             clock: Tracer | None = None) -> torch.Tensor:
     """The decode's kernels on rows already on the device; with
     ``decoder.capture_device_call`` set, records ``(fn, args)`` on
     ``decoder.last_device_call`` such that ``fn(*args)`` replays them and
@@ -544,28 +549,37 @@ def _dec_run(decoder, ctx: _DecContext, rows_dev: torch.Tensor,
 
 def decode_device(decoder, plan: CoderPlan, info, scan_data,
                   segments_by_scan, dc_by_comp, ac_by_comp,
-                  out_image) -> torch.Tensor:
+                  out_image, tr: Tracer | None = None) -> torch.Tensor:
     """Run the device decode; returns the flat uint8 raw frame in the
     output's pixel format on the decoder's device and fills the
-    decoder's upload and device stats."""
+    decoder's upload and device stats. ``tr``, the call's tracer with
+    perf stats on, gets the spans and marks and the stats their stage
+    durations."""
     ctx, rows = decode_prep(decoder, plan, info, scan_data, segments_by_scan,
-                            dc_by_comp, ac_by_comp, out_image)
-    clock = StageClock(ctx.device) if decoder.perf_stats else None
-    t0 = time.perf_counter()
+                            dc_by_comp, ac_by_comp, out_image, tr)
+    t0 = (tr.open("gpujpeg.dec.memory_to") if tr is not None
+          else time.perf_counter_ns())
     rows_dev = torch.from_numpy(rows).to(ctx.device)
-    t1 = time.perf_counter()
-    _mark(clock)
-    raw = _dec_run(decoder, ctx, rows_dev, clock)
+    if tr is not None:
+        t1 = tr.close(rows.nbytes)
+        tr.open("gpujpeg.dec.launch")
+        tr.mark()
+    else:
+        t1 = time.perf_counter_ns()
+    raw = _dec_run(decoder, ctx, rows_dev, tr)
+    if tr is not None:
+        tr.close()
+        tr.open("gpujpeg.dec.wait")
     if ctx.device.type == "cuda":
         torch.cuda.synchronize(ctx.device)
-    t2 = time.perf_counter()
+    t2 = tr.close() if tr is not None else time.perf_counter_ns()
     st = decoder.stats
     st.bytes_memory_to = int(rows.nbytes)
-    st.duration_memory_to = (t1 - t0) * 1e3
-    st.duration_in_gpu = (t2 - t1) * 1e3
-    if clock is not None:
+    st.duration_memory_to = (t1 - t0) * 1e-6
+    st.duration_in_gpu = (t2 - t1) * 1e-6
+    if tr is not None:
         (st.duration_huffman_coder, st.duration_dct_quantization,
-         st.duration_postprocessor) = clock.durations()
+         st.duration_postprocessor) = tr.durations()
     return raw
 
 

@@ -80,6 +80,7 @@ from ..plan import CoderPlan, make_plan
 from ..stream import reader as stream_reader
 from ..stream.writer import HeaderType, JpegWriter
 from ..tables import default_huffman_table, quant_table_zz
+from ..trace import Tracer
 from ..types import (PIXEL_FORMAT_DESC, ColorSpace, ComponentType,
                      HuffmanType, PixelFormat, image_calculate_size)
 
@@ -519,19 +520,27 @@ class ShardedEncoder:
         on its device and copied to the host, and each frame's stream is
         assembled. Frames are what ``Encoder.encode`` takes (bytes, NumPy
         arrays or tensors). The devices hold every frame's output at once:
-        split long sequences into batches."""
-        b = self._build(params, image)
-        launched = []
-        for f, raw in enumerate(raws):
-            bands = split_raw_bands(raw, image, b.layout)
-            launched.append([
-                self._launch_band(b, i, bands[i], device)
-                for i, device in enumerate(self.mesh.devices[f % self.n_frame])])
-        self.last_device_call = (_replay_bands, (
-            [args for frame in launched for args, _ in frame],))
-        return [self._assemble(b, [self._compact(args[0], out)
-                                   for args, out in frame])
-                for frame in launched]
+        split long sequences into batches. With ``params.perf_stats`` the
+        batch is one root span (:mod:`gpujpeg_tpu_torch.trace`)."""
+        tr = (Tracer(self.mesh.devices[0][0], "gpujpeg.enc")
+              if params.perf_stats else None)
+        try:
+            b = self._build(params, image)
+            launched = []
+            for f, raw in enumerate(raws):
+                bands = split_raw_bands(raw, image, b.layout)
+                launched.append([
+                    self._launch_band(b, i, bands[i], device)
+                    for i, device in enumerate(
+                        self.mesh.devices[f % self.n_frame])])
+            self.last_device_call = (_replay_bands, (
+                [args for frame in launched for args, _ in frame],))
+            return [self._assemble(b, [self._compact(args[0], out)
+                                       for args, out in frame])
+                    for frame in launched]
+        finally:
+            if tr is not None:
+                tr.finish()
 
     def _launch_band(self, b: _ShardedBuild, i: int, band,
                      device: torch.device):
