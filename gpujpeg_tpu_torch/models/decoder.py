@@ -264,7 +264,14 @@ class Decoder:
     def decode(self, data: bytes) -> tuple[np.ndarray, ImageParameters]:
         """Decode one stream: (the raw frame, its ImageParameters). With
         :attr:`perf_stats` the call's spans are recorded
-        (:mod:`gpujpeg_tpu_torch.trace`)."""
+        (:mod:`gpujpeg_tpu_torch.trace`).
+
+        The frame is a new flat uint8 NumPy array of the caller's own. A
+        frame decoded on the card is a view of page-locked host memory
+        from torch's caching host allocator: the block is the array's
+        while the caller holds it, and returns to the cache when the
+        caller drops it, for the next frame of its size
+        (``ops/pipeline.py``)."""
         tr = Tracer(self.device, "gpujpeg.dec") if self.perf_stats else None
         try:
             return self._decode(data, tr)
@@ -287,13 +294,13 @@ class Decoder:
         if self._golden_route(job.plan):
             return self._decode_golden(*job), job.out_image
 
-        from ..ops.pipeline import decode_device
+        from ..ops.pipeline import copy_back, decode_device
         raw = decode_device(self, *job, tr)
         if self.output_to_device:
             return raw, job.out_image
         t0 = (tr.open("gpujpeg.dec.memory_from") if tr is not None
               else time.perf_counter_ns())
-        host = raw.cpu().numpy()
+        host = copy_back(raw, tr).numpy()
         t1 = tr.close(host.nbytes) if tr is not None else time.perf_counter_ns()
         self.stats.duration_memory_from = (t1 - t0) * 1e-6
         return host, job.out_image

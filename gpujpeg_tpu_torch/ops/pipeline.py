@@ -56,11 +56,21 @@ frames' kernels. Host frames go to the card through a
 copies. The decode is split for ``Decoder.decode_batch`` into
 :func:`decode_prep` (the context and the segment rows, on the host),
 :func:`decode_launch` (upload through a :class:`PinnedRing`, the
-kernels, and the frame's copy back into fresh pinned memory, without a
+kernels, and the frame's copy back into pinned memory, without a
 sync) and :func:`decode_collect` (the wait on the frame's event). On
 the CPU there is no stream and no pinned memory and the same code runs
 frame after frame. The single-frame :func:`encode_segments_device` and
-:func:`decode_device` keep their pageable transfers.
+:func:`decode_device` keep their pageable uploads.
+
+**Decoded frames in host memory.** A frame that a decode brings back
+from the card (``Decoder.decode``'s :func:`copy_back`, a batch's
+:func:`decode_launch`) lands in a block of page-locked memory from
+torch's caching host allocator (:func:`pinned_like`). The block belongs
+to the returned tensor, and to the NumPy array that views it, as long as
+the caller holds either; no later decode writes into it. When the caller
+drops the frame the block returns to the cache, and the next frame of
+that size takes it without a page fault or a ``cudaHostAlloc``. A caller
+that holds many frames holds that much page-locked memory.
 
 **Stage statistics and spans.** With ``Parameters.perf_stats`` (encode)
 or ``Decoder.perf_stats`` (decode) the call's :class:`trace.Tracer`
@@ -426,6 +436,12 @@ def encode_batch_device(encoder, raws, plan: CoderPlan, quant_zz: dict,
 
 #: decode contexts kept per decoder (one per recent geometry and table set)
 DEC_CONTEXTS = 4
+#: the key of ``torch.cuda.host_memory_stats()`` that counts, over the
+#: process, the bytes of the page-locked blocks that torch's caching host
+#: allocator took from CUDA (each rounded up to a power of two); a cached
+#: block handed out again adds nothing (torch 2.11; a torch upgrade
+#: re-checks it: ``tests/test_torch_copy_back.py`` on the card)
+PINNED_TAKEN = "allocated_bytes.allocated"
 
 
 class _DecContext:
@@ -583,13 +599,52 @@ def decode_device(decoder, plan: CoderPlan, info, scan_data,
     return raw
 
 
+def pinned_like(t: torch.Tensor, tr: Tracer | None = None) -> torch.Tensor:
+    """An empty host tensor of ``t``'s shape and dtype in page-locked
+    memory from torch's caching host allocator: the block is the
+    tensor's until its last reference goes, then returns to the cache for
+    the next request of its size. ``tr`` gets the span
+    ``gpujpeg.dec.pin``, whose bytes are those the allocator took fresh
+    from CUDA for it: 0 where a cached block served it (the count is the
+    process's, so another thread's allocation at that moment adds to
+    it)."""
+    if tr is None:
+        return torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    tr.open("gpujpeg.dec.pin")
+    before = _pinned_taken()
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    tr.close(_pinned_taken() - before)
+    return host
+
+
+def _pinned_taken() -> int:
+    """The process's count :data:`PINNED_TAKEN`."""
+    stats = torch.cuda.host_memory_stats()
+    if PINNED_TAKEN not in stats:
+        raise KeyError(f"torch {torch.__version__}'s host_memory_stats() "
+                       f"has no {PINNED_TAKEN!r}: set PINNED_TAKEN to its "
+                       f"count of pinned bytes taken from CUDA")
+    return stats[PINNED_TAKEN]
+
+
+def copy_back(raw: torch.Tensor, tr: Tracer | None = None) -> torch.Tensor:
+    """:func:`decode_device`'s frame in host memory, a tensor of the
+    caller's own: from the card a copy into :func:`pinned_like`'s block
+    (``tr`` gets its span), after the decode's sync; on the CPU ``raw``."""
+    if raw.device.type != "cuda":
+        return raw
+    host = pinned_like(raw, tr)
+    host.copy_(raw)
+    return host
+
+
 def decode_launch(decoder, ctx: _DecContext, rows: np.ndarray,
                   staging: PinnedRing | None):
     """The device half of a batch decode, without a sync: the rows are
     uploaded (through ``staging`` on the card), the kernels launched and,
     unless ``decoder.output_to_device``, the frame's copy back queued into
-    fresh pinned memory, which is not reused while a caller holds it.
-    Returns what :func:`decode_collect` takes."""
+    :func:`pinned_like`'s block, which is not reused while a caller holds
+    it. Returns what :func:`decode_collect` takes."""
     if staging is None:
         rows_dev = torch.from_numpy(rows).to(ctx.device)
     else:
@@ -599,7 +654,7 @@ def decode_launch(decoder, ctx: _DecContext, rows: np.ndarray,
     if ctx.device.type != "cuda":
         return raw, None
     if not decoder.output_to_device:
-        host = torch.empty(raw.shape, dtype=raw.dtype, pin_memory=True)
+        host = pinned_like(raw)
         host.copy_(raw, non_blocking=True)
         raw = host
     ev = torch.cuda.Event()

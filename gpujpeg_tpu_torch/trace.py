@@ -64,6 +64,7 @@ NAMES = (
     "gpujpeg.dec.launch",       # the kernels' enqueue
     "gpujpeg.dec.wait",         # the host waits for the card
     "gpujpeg.dec.memory_from",  # the frame to host memory (frame's bytes)
+    "gpujpeg.dec.pin",          # its page-locked block (bytes taken fresh)
 )
 _CODE = {name: i for i, name in enumerate(NAMES)}
 
