@@ -30,7 +30,9 @@ import torch
 from .reference import codec, pixels
 from .reference.geometry import PIXEL_FORMATS, Geometry, raw_size
 
-#: lanes of one call of the lockstep decoder (bounds its temporaries)
+#: segments of one call of the lockstep decoder (bounds its temporaries;
+#: it cuts a segment longer than ``codec.CHUNK_BITS`` into more lanes only
+#: without restart markers, one segment a scan)
 DECODE_LANES = 1 << 18
 
 
@@ -42,6 +44,8 @@ class Deployment:
         self.cfg = cfg
         self.geo = geo
         self.quant = codec.quant_tables(geo, cfg["quality"])
+        #: the reference decoder's lanes, rounds and steps, summed
+        self.counts = {"lanes": 0, "rounds": 0, "steps": 0}
 
     def planes(self, raw: torch.Tensor) -> list:
         c = self.cfg
@@ -76,8 +80,11 @@ class Deployment:
         per = max(1, DECODE_LANES // max(1, self.geo.n_segments))
         coeffs = []
         for i in range(0, len(good), per):
-            coeffs += list(codec.decode_segments(good[i:i + per], self.geo,
-                                                 device)[0])
+            coeff, _, counts = codec.decode_segments(good[i:i + per],
+                                                     self.geo, device)
+            coeffs += list(coeff)
+            for key, v in counts.items():
+                self.counts[key] += v
         it = iter(coeffs)
         return [None if p is None else (next(it), p.quant) for p in parsed]
 

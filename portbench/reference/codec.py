@@ -1,7 +1,9 @@
 """The benchmark's plain JPEG coder: float64 DCT and IDCT, an entropy
-coder and decoder that work on every restart segment at once, and the
-stream's markers. Plain torch and NumPy on any device; it imports
-nothing of the program and takes nothing the program made.
+coder and decoder that work on every restart segment at once (the
+decoder on a long segment, as a stream without restart markers has, in
+chunks), and the stream's markers. Plain torch and NumPy on any
+device; it imports nothing of the program and takes nothing the program
+made.
 
 ``precision`` selects the arithmetic of the transforms: ``"float64"``
 for the reference, ``"tf32"`` for the control, the nearest precision
@@ -21,6 +23,10 @@ from .geometry import Geometry
 
 #: blocks a transform takes at once (bounds its float64 temporaries)
 CHUNK_BLOCKS = 1 << 18
+#: bits of a lane where the decoder cuts a segment into chunks
+CHUNK_BITS = 1024
+#: a lane's stop or count that is never reached
+_NEVER = 1 << 62
 
 
 def tf32(x: torch.Tensor) -> torch.Tensor:
@@ -256,9 +262,10 @@ def _marker(m: int, payload: bytes) -> bytes:
 
 
 def write_stream(bodies: list, geo: Geometry, quant: list) -> bytes:
-    """A JFIF baseline stream: SOI, APP0, DQT, SOF0, DHT, DRI, one SOS
-    and body a scan, EOI. Components are numbered 1, 2, ...; the tables
-    of class 0 serve luminance, those of class 1 chrominance."""
+    """A JFIF baseline stream: SOI, APP0, DQT, SOF0, DHT, DRI (none at
+    restart interval 0), one SOS and body a scan, EOI. Components are
+    numbered 1, 2, ...; the tables of class 0 serve luminance, those of
+    class 1 chrominance."""
     out = [b"\xff\xd8", _marker(0xE0, b"JFIF\x00\x01\x01\x01\x01\x2c"
                                 b"\x01\x2c\x00\x00")]
     kinds = sorted({c.kind for c in geo.components})
@@ -275,7 +282,8 @@ def write_stream(bodies: list, geo: Geometry, quant: list) -> bytes:
             bits, values, _, _ = tables.default_huffman(cls, k)
             out.append(_marker(0xC4, bytes([(cls << 4) | k]) + bytes(bits)
                                + bytes(values)))
-    out.append(_marker(0xDD, geo.restart_interval.to_bytes(2, "big")))
+    if geo.restart_interval:
+        out.append(_marker(0xDD, geo.restart_interval.to_bytes(2, "big")))
     for scan, body in zip(geo.scans, bodies):
         sos = bytes([len(scan)])
         for i in scan:
@@ -417,7 +425,8 @@ def parse(stream: bytes, geo: Geometry) -> Parsed:
                 break
             scans.append((tuple(ids), sel, buf[pos:j]))
             pos = j
-    if comp_q is None or ri != geo.restart_interval:
+    # no DRI, or DRI 0, is a stream without restart markers
+    if comp_q is None or (ri or 0) != geo.restart_interval:
         raise StreamError(f"restart interval {ri}, expected "
                           f"{geo.restart_interval}")
     if [s[0] for s in scans] != list(geo.scans):
@@ -439,80 +448,225 @@ def parse(stream: bytes, geo: Geometry) -> Parsed:
                   (np.cumsum(lens) - lens) * 8, lens * 8, quant, luts)
 
 
-def decode_segments(parsed: list, geo: Geometry, device) -> tuple:
+def _dc_values(diff: torch.Tensor, geo: Geometry) -> torch.Tensor:
+    """(P, n_blocks) DC differences -> DC values: each summed along its
+    chain of predictors (``geo.dc_pred``: a component's blocks in scan
+    order within a segment, the whole scan without restarts)."""
+    dev = diff.device
+    seg_of_block = np.repeat(np.arange(geo.n_segments), geo.seg_count)
+    order = np.lexsort((np.arange(geo.n_blocks), geo.block_comp,
+                        seg_of_block))
+    head = geo.dc_pred[order] < 0
+    chain = torch.as_tensor(np.cumsum(head) - 1, device=dev)
+    order, head = torch.as_tensor(order, device=dev), \
+        torch.as_tensor(head, device=dev)
+    d = diff[:, order]
+    cs = d.cumsum(1)
+    out = torch.empty_like(diff)
+    # a block's running sum less the sum before its chain's head
+    out[:, order] = cs - (cs - d)[:, head][:, chain]
+    return out
+
+
+class _Lanes:
+    """The lockstep decoder's constants: the streams' bits, their
+    lookups, and for each lane its segment, stream and stop."""
+
+    def __init__(self, parsed: list, geo: Geometry, dev, chunk_bits: int):
+        P, S = len(parsed), geo.n_segments
+        t = lambda a: torch.as_tensor(np.asarray(a), device=dev)  # noqa: E731
+        data = np.concatenate([p.data for p in parsed]
+                              + [np.zeros(8, np.uint8)])
+        base = np.cumsum([0] + [len(p.data) * 8 for p in parsed])[:-1]
+        self.n_bytes = len(data)
+        self.buf = t(data).to(torch.int64)
+        bit0 = t(np.concatenate([p.seg_bit0 + b
+                                 for p, b in zip(parsed, base)]))
+        self.seg_end = bit0 + t(np.concatenate([p.seg_bits
+                                                for p in parsed]))
+        self.nc, self.nb = len(geo.components), geo.n_blocks
+        # lookups: table (stream, component, class) -> row of ``lut``
+        self.lut = t(np.stack([p.luts[c][k] for p in parsed
+                               for c in range(self.nc) for k in (0, 1)]))
+        self.seg_stream = torch.arange(P * S, device=dev) // S
+        self.seg_start = t(geo.seg_start).repeat(P)
+        self.seg_count = t(geo.seg_count).repeat(P)
+        self.comp_of_block = t(geo.block_comp)
+        #: blocks of an MCU: a segment's components repeat with it
+        self.bpm = sum(c.h * c.v for c in geo.components) \
+            if geo.interleaved else 1
+        # a lane a chunk of ``chunk_bits``; the last chunk of a segment
+        # starts 8 bits or more before its end, so that the decode of the
+        # whole segment passes every chunk's start
+        n = torch.ones(P * S, dtype=torch.int64, device=dev)
+        if chunk_bits:
+            n = (self.seg_end - bit0 - 8).clamp(min=0) // chunk_bits + 1
+        self.seg = torch.repeat_interleave(torch.arange(P * S, device=dev),
+                                           n)
+        j = torch.arange(len(self.seg), device=dev) \
+            - (torch.cumsum(n, 0) - n)[self.seg]
+        self.first = j == 0
+        self.last = j == n[self.seg] - 1
+        self.start = bit0[self.seg] + j * chunk_bits
+        self.stop = torch.where(self.last, _NEVER, self.start + chunk_bits)
+
+    def run(self, lanes, pos, blk, k, count, out=None) -> tuple:
+        """Decode ``lanes`` from (bit, block of the segment, zig-zag
+        index; a block's component is that of the block at its place in
+        the MCU), a symbol of every live lane a step, until each is at
+        block ``count``, reaches a symbol boundary at or past its stop,
+        or fails: an invalid code, a coefficient past 63, a bit read past
+        its segment. Returns the end (bit, block, index), whether it
+        failed, and the steps. With ``out``, (P * n_blocks * 64,), each
+        coefficient is written there, a DC as its difference."""
+        dev = pos.device
+        seg = self.seg[lanes]
+        stream, s0 = self.seg_stream[seg], self.seg_start[seg]
+        end, stop = self.seg_end[seg], self.stop[lanes]
+        bad = torch.zeros_like(pos, dtype=torch.bool)
+        live = (blk < count) & (pos < stop)
+        shifts = torch.tensor([32, 24, 16, 8, 0], device=dev)
+        steps = 0
+        while bool(live.any()):
+            steps += 1
+            comp = self.comp_of_block[s0 + blk % self.bpm]
+            byte = (pos >> 3).clamp(max=self.n_bytes - 8)
+            win = (self.buf[byte[:, None] + torch.arange(5, device=dev)]
+                   << shifts).sum(1)
+            win = (win << (pos & 7)) & ((1 << 40) - 1)
+            row = (stream * self.nc + comp) * 2 + (k > 0).to(torch.int64)
+            e = self.lut[row, win >> 24]
+            n, sym = e & 255, e >> 8
+            dc = k == 0
+            size = torch.where(dc, sym, sym & 15)
+            run = torch.where(dc, 0, sym >> 4)
+            raw = (win >> (40 - n - size).clamp(min=0)) & ((1 << size) - 1)
+            val = torch.where(
+                (size > 0) & (raw < (1 << (size - 1).clamp(min=0))),
+                raw - (1 << size) + 1, raw)
+            fail = live & ((n == 0) | (size > 11))
+            eob = ~dc & (sym == 0)
+            zrl = ~dc & (sym == 0xF0)
+            at = torch.where(dc, 0, k + run)
+            write = live & ~fail & ~eob & ~zrl & (at < 64)
+            fail = fail | (live & ~dc & ~eob & ~zrl & (at >= 64))
+            fail = fail | (live & zrl & (k + 16 > 64))
+            if out is not None:
+                idx = ((stream * self.nb + s0 + blk) * 64
+                       + at.clamp(max=63))[write]
+                out[idx] = val[write]
+            k = torch.where(live, torch.where(eob, 64, torch.where(
+                zrl, k + 16, at + 1)), k)
+            pos = torch.where(live, pos + n + size, pos)
+            fail = fail | (live & (pos > end))
+            done = live & (k >= 64)
+            blk = blk + done.to(torch.int64)
+            k = torch.where(done, 0, k)
+            bad = bad | fail
+            live = live & ~fail & (blk < count) & (pos < stop)
+        return pos, blk, k, bad, steps
+
+
+def _any(seg: torch.Tensor, flag: torch.Tensor, n: int) -> torch.Tensor:
+    """(n,) bool: whether ``flag`` holds for any lane of each segment."""
+    return torch.zeros(n, dtype=torch.int64, device=flag.device) \
+        .index_add_(0, seg, flag.to(torch.int64)) > 0
+
+
+def _segmented_exclusive(x: torch.Tensor, first: torch.Tensor
+                         ) -> torch.Tensor:
+    """Sum of ``x`` over the earlier lanes of each lane's segment (lanes of
+    a segment are consecutive, ``first`` marks each segment's first)."""
+    before = torch.cumsum(x, 0) - x
+    head = torch.cummax(torch.where(first, torch.arange(
+        len(x), device=x.device), 0), 0).values
+    return before - before[head]
+
+
+def decode_segments(parsed: list, geo: Geometry, device,
+                    chunk_bits: int | None = None) -> tuple:
     """Huffman-decode the segments of several parsed streams of one
-    geometry at once, a symbol of every segment a step. Returns the
-    (n_streams, n_blocks, 64) int32 zig-zag coefficients, scan order, and
-    a (n_streams, n_segments) bool of the segments that decoded whole:
-    every block, no invalid code, no bit read past the segment and at
-    most 7 bits of padding left. The blocks of the others are 0."""
-    P, S, nb = len(parsed), geo.n_segments, geo.n_blocks
+    geometry at once, a symbol of every lane a step. Returns the
+    (n_streams, n_blocks, 64) int32 zig-zag coefficients, scan order, a
+    (n_streams, n_segments) bool of the segments that decoded whole
+    (every block, no invalid code, no bit read past the segment and at
+    most 7 bits of padding left; the blocks of the others are 0), and the
+    decode's counts: lanes, rounds and steps.
+
+    A lane is a segment, or, where ``chunk_bits`` is set (by default
+    :data:`CHUNK_BITS` at restart interval 0, where a segment is a whole
+    scan; none otherwise), a chunk of that many bits of one. Each chunk's
+    lane runs from a start (bit, block, zig-zag index) to the first
+    symbol boundary at or past the next chunk's start, and that end is
+    the next lane's start in the next round: first a guess (the chunk's
+    first bit, a block's DC), then its predecessor's end, until no start
+    changes. A segment's first lane starts exact, so each round settles
+    at least one more lane; the code's self-synchronisation settles most
+    in the first rounds. The blocks of each lane's segment before it are
+    then counted, and a last pass decodes every lane from its settled
+    start, its last lane up to the segment's last block.
+    """
     dev = torch.device(device)
-    t = lambda a: torch.as_tensor(np.asarray(a), device=dev)  # noqa: E731
-    data = np.concatenate([p.data for p in parsed] + [np.zeros(8, np.uint8)])
-    base = np.cumsum([0] + [len(p.data) * 8 for p in parsed])[:-1]
-    buf = t(data).to(torch.int64)
-    bit0 = t(np.concatenate([p.seg_bit0 + b for p, b in zip(parsed, base)]))
-    end = bit0 + t(np.concatenate([p.seg_bits for p in parsed]))
-    nc = len(geo.components)
-    # lookups: table (stream, component, class) -> row of ``lut``
-    lut = t(np.stack([p.luts[c][k] for p in parsed for c in range(nc)
-                      for k in (0, 1)]))
-    lane_stream = torch.arange(P * S, device=dev) // S
-    seg_start = t(geo.seg_start).repeat(P)
-    seg_count = t(geo.seg_count).repeat(P)
-    comp_of_block = t(geo.block_comp)
-    out = torch.zeros(P * nb * 64, dtype=torch.int64, device=dev)
-    pos = bit0.clone()
-    blk = torch.zeros(P * S, dtype=torch.int64, device=dev)
-    k = torch.zeros_like(blk)
-    pred = torch.zeros(P * S, nc, dtype=torch.int64, device=dev)
-    ok = torch.ones(P * S, dtype=torch.bool, device=dev)
-    live = seg_count > 0
-    shifts = torch.tensor([32, 24, 16, 8, 0], device=dev)
-    while bool(live.any()):
-        b = (seg_start + blk).clamp(max=nb - 1)
-        comp = comp_of_block[b]
-        byte = (pos >> 3).clamp(max=len(data) - 8)
-        win = (buf[byte[:, None] + torch.arange(5, device=dev)]
-               << shifts).sum(1)
-        win = (win << (pos & 7)) & ((1 << 40) - 1)
-        row = (lane_stream * nc + comp) * 2 + (k > 0).to(torch.int64)
-        e = lut[row, win >> 24]
-        n, sym = e & 255, e >> 8
-        dc = k == 0
-        size = torch.where(dc, sym, sym & 15)
-        run = torch.where(dc, 0, sym >> 4)
-        raw = (win >> (40 - n - size).clamp(min=0)) & ((1 << size) - 1)
-        val = torch.where((size > 0) & (raw < (1 << (size - 1).clamp(min=0))),
-                          raw - (1 << size) + 1, raw)
-        bad = live & ((n == 0) | (size > 11))
-        pcomp = pred.gather(1, comp[:, None])[:, 0]
-        dcv = pcomp + val
-        pred.scatter_(1, comp[:, None],
-                      torch.where(live & dc, dcv, pcomp)[:, None])
-        eob = ~dc & (sym == 0)
-        zrl = ~dc & (sym == 0xF0)
-        at = torch.where(dc, 0, k + run)
-        write = live & ~bad & ~eob & ~zrl & (at < 64)
-        bad = bad | (live & ~dc & ~eob & ~zrl & (at >= 64))
-        bad = bad | (live & zrl & (k + 16 > 64))
-        idx = ((lane_stream * nb + b) * 64 + at.clamp(max=63))[write]
-        out[idx] = torch.where(dc, dcv, val)[write]
-        k = torch.where(live, torch.where(eob, 64, torch.where(
-            zrl, k + 16, at + 1)), k)
-        pos = torch.where(live, pos + n + size, pos)
-        bad = bad | (live & (pos > end))
-        done = live & (k >= 64)
-        blk = blk + done.to(torch.int64)
-        k = torch.where(done, 0, k)
-        ok = ok & ~bad
-        live = live & ~bad & (blk < seg_count)
-    ok = ok & (end - pos < 8)
-    coeff = out.reshape(P, nb, 64)
+    P, S = len(parsed), geo.n_segments
+    if chunk_bits is None:
+        chunk_bits = CHUNK_BITS if geo.restart_interval == 0 else 0
+    ln = _Lanes(parsed, geo, dev, chunk_bits)
+    L, last = len(ln.seg), ln.last
+    # each lane's start (bit, block of its MCU, zig-zag index); its last
+    # run's end, failure and blocks; the segments that failed
+    pos, phase, k = ln.start.clone(), torch.zeros_like(ln.start), \
+        torch.zeros_like(ln.start)
+    e_pos, e_phase, e_k, dblk = pos.clone(), phase.clone(), k.clone(), \
+        torch.zeros_like(pos)
+    bad = torch.zeros(L, dtype=torch.bool, device=dev)
+    failed = torch.zeros(P * S, dtype=torch.bool, device=dev)
+    counts = {"lanes": L, "rounds": 0, "steps": 0}
+    prev = (torch.arange(L, device=dev) - 1).clamp(min=0)
+    todo = ~last
+    while bool(todo.any()):
+        i = torch.nonzero(todo)[:, 0]
+        e_pos[i], e_blk, e_k[i], bad[i], n = ln.run(
+            i, pos[i], phase[i], k[i], torch.full_like(i, _NEVER))
+        e_phase[i], dblk[i] = e_blk % ln.bpm, e_blk - phase[i]
+        counts["rounds"] += 1
+        counts["steps"] += n
+        # a lane's end is its successor's next start, unless it failed
+        take = ~ln.first & ~bad[prev]
+        n_pos = torch.where(take, e_pos[prev], pos)
+        n_phase = torch.where(take, e_phase[prev], phase)
+        n_k = torch.where(take, e_k[prev], k)
+        moved = (n_pos != pos) | (n_phase != phase) | (n_k != k)
+        # a lane ran from its exact start where no lane before it in its
+        # segment failed or saw its successor's start move
+        brk = ~last & (bad | torch.cat([moved[1:], moved[:1]]))
+        clean = _segmented_exclusive(brk.to(torch.int64), ln.first) == 0
+        failed |= _any(ln.seg, clean & bad, P * S)
+        unsettled = _any(ln.seg, brk, P * S) & ~failed
+        pos, phase, k = n_pos, n_phase, n_k
+        todo = moved & ~last & unsettled[ln.seg]
+    # the last pass: each lane from its settled start, its blocks counted
+    # from its segment's lanes before it
+    out = torch.zeros(P * ln.nb * 64, dtype=torch.int64, device=dev)
+    blk0 = _segmented_exclusive(torch.where(last, 0, dblk), ln.first)
+    i = torch.nonzero(~failed[ln.seg])[:, 0]
+    seg = ln.seg[i]
+    f_pos, f_blk, _, f_bad, n = ln.run(i, pos[i], blk0[i], k[i],
+                                       ln.seg_count[seg], out)
+    counts["steps"] += n
+    # a segment fails where a lane fails, where its blocks end before a
+    # lane's stop (more than 7 bits before the segment's end), or where
+    # more than 7 bits are left after its last block
+    wrong = f_bad | (~last[i] & (f_blk >= ln.seg_count[seg])
+                     & (f_pos < ln.stop[i])) \
+        | (last[i] & (ln.seg_end[seg] - f_pos >= 8))
+    failed |= _any(seg, wrong, P * S)
+    ok = ~failed.reshape(P, S)
+    coeff = out.reshape(P, ln.nb, 64)
+    coeff[:, :, 0] = _dc_values(coeff[:, :, 0], geo)
     # the blocks of a segment that failed read as 0
     seg_of_block = torch.repeat_interleave(
-        torch.arange(S, device=dev), t(geo.seg_count))
-    good = ok.reshape(P, S)[:, seg_of_block]
-    return (torch.where(good[:, :, None], coeff, 0).to(torch.int32),
-            ok.reshape(P, S))
+        torch.arange(S, device=dev), torch.as_tensor(geo.seg_count,
+                                                     device=dev))
+    good = ok[:, seg_of_block]
+    return (torch.where(good[:, :, None], coeff, 0).to(torch.int32), ok,
+            counts)

@@ -2,7 +2,8 @@
 
 Components, their planes padded to whole MCUs, scans (one interleaved
 scan, or one a component), restart segments of ``restart_interval``
-MCUs, and the order in which blocks are entropy coded. A frozen copy of
+MCUs (one segment a scan where it is 0: no restart markers), and the
+order in which blocks are entropy coded. A frozen copy of
 the geometry of GPUJPEG's ``gpujpeg_coder_init_image``
 (``gpujpeg_common.c``), written afresh from the same rules.
 """
@@ -77,9 +78,10 @@ def make_geometry(width: int, height: int, sampling, interleaved: bool,
                   ) -> Geometry:
     """The geometry of a frame coded with per-component ``sampling``
     ((h, v) pairs), one interleaved scan or a scan a component, and
-    ``restart_interval`` MCUs a segment (at least 1)."""
-    if restart_interval < 1:
-        raise ValueError("the benchmark's deployments use restart markers")
+    ``restart_interval`` MCUs a segment; 0 for none: one segment a scan,
+    its DC predictor never reset (T.81 F.1.1.5.1)."""
+    if restart_interval < 0:
+        raise ValueError(f"restart interval {restart_interval}")
     n = len(sampling)
     if n == 1:
         sampling = ((1, 1),)
@@ -96,7 +98,6 @@ def make_geometry(width: int, height: int, sampling, interleaved: bool,
         comps.append(Component(i, kind, h, v, w, ht, dw, dh, dw // 8,
                                dh // 8, off))
         off += (dw // 8) * (dh // 8)
-    ri = restart_interval
     if interleaved:
         mcx, mcy = comps[0].data_width // (8 * comps[0].h), \
             comps[0].data_height // (8 * comps[0].v)
@@ -106,6 +107,7 @@ def make_geometry(width: int, height: int, sampling, interleaved: bool,
         sy = np.array([s[1] for s in slot])
         sx = np.array([s[2] for s in slot])
         mcu = np.arange(mcx * mcy)
+        ri = restart_interval or len(mcu)
         my_, mx_ = mcu // mcx, mcu % mcx
         hs = np.array([c.h for c in comps])[sc]
         vs = np.array([c.v for c in comps])[sc]
@@ -129,6 +131,7 @@ def make_geometry(width: int, height: int, sampling, interleaved: bool,
         seg0, blk0 = 0, 0
         for c in comps:
             nb = c.blocks_x * c.blocks_y
+            ri = restart_interval or nb
             ns = -(-nb // ri)
             seg_of_block.append(np.arange(nb) // ri + seg0)
             st = np.arange(ns) * ri
@@ -142,14 +145,15 @@ def make_geometry(width: int, height: int, sampling, interleaved: bool,
         seg_scan = np.concatenate(seg_scan)
         scans = tuple((c.index,) for c in comps)
     # the DC predictor: the previous block of the same component in the
-    # same segment (T.81 F.1.1.5.1, reset at each restart)
+    # same segment (T.81 F.1.1.5.1, reset at each restart marker)
     nb = len(comp)
     order = np.lexsort((np.arange(nb), comp, seg_of_block))
     prev = np.full(nb, -1, np.int64)
     same = ((seg_of_block[order][1:] == seg_of_block[order][:-1])
             & (comp[order][1:] == comp[order][:-1]))
     prev[order[1:][same]] = order[:-1][same]
-    return Geometry(width, height, interleaved, ri, tuple(comps), scans, nb,
+    return Geometry(width, height, interleaved, restart_interval,
+                    tuple(comps), scans, nb,
                     len(starts), plane.astype(np.int64),
                     comp.astype(np.int64), prev,
                     starts.astype(np.int64), counts.astype(np.int64),

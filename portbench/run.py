@@ -229,9 +229,12 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device="cuda",
     outs = [(i % P, o) for i, o in enumerate(dec.results)
             if o is not None and o is not False]
     frames_of = dict(enumerate(pool))
+    t = time.perf_counter()
+    dep.counts = dict.fromkeys(dep.counts, 0)
     numbers = {"enc_worst_miss": judge.worst_miss(dep, list(uniq),
                                                   frames_of, dev)}
     numbers["dec_worst_miss"] = judge.decode_miss(dep, outs, frames_of, dev)
+    judge_s = time.perf_counter() - t
     limits = cfg["limits"]
     checks = {k: {"value": v, "limit": limits.get(k)}
               for k, v in numbers.items()}
@@ -283,6 +286,8 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device="cuda",
         f"; the reference's streams {reference_s:.3f}, not counted); "
         f"memory_peak_bytes {peak}; judged {len(uniq)} distinct streams, "
         f"{len(outs)} frames")
+    lines.append(f"judge {judge_s:.3f} s; the reference's decode: "
+                 + ", ".join(f"{v} {k}" for k, v in dep.counts.items()))
     lines.append(f"calibration: a fixed Python loop took {speed[0]:.2f} ms "
                  f"before the window, {speed[1]:.2f} ms after it")
     for k, c in checks.items():

@@ -146,7 +146,12 @@ def test_none_for_a_program_without_a_tracer(monkeypatch, name):
 
 
 def test_none_for_a_program_without_the_module(monkeypatch):
+    """Whether or not an earlier test imported the program: the package
+    whole first, so that no test after this one finds it half imported."""
     import sys
+
+    import gpujpeg_tpu_torch
+    monkeypatch.delattr(gpujpeg_tpu_torch, "trace", raising=False)
     monkeypatch.setitem(sys.modules, "gpujpeg_tpu_torch.trace", None)
     assert spans.source() is None
 
