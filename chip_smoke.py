@@ -131,8 +131,9 @@ the first failure:
    beside the loop of ``encode`` (host clock, median of 3); (iii)
    ``Decoder.decode_batch`` of those streams to RGB and to I420, every
    output equal to ``decode`` of its stream, launches once a frame, times
-   beside the loop; a mixed batch (8K, 4K, a 200x136 stream on the golden
-   route, 8K) equal to the per-frame decodes; a corrupt stream in the
+   beside the loop; a mixed batch (8K, 4K, a 200x136 stream without
+   restart markers on the lane route, a 40x32 stream of under 32 segments
+   on the golden route, 8K) equal to the per-frame decodes; a corrupt stream in the
    middle raises ``JpegParseError`` and a decode after it succeeds;
    ``output_to_device`` through the batch gives CUDA tensors; (iv)
    ``capture_device_call``'s replay of the 8K decode equal to its output;
@@ -194,6 +195,19 @@ the first failure:
    decodes or raises ``JpegParseError``, ``oom`` counted), every kernel of
    the encode and decode routes launched; the phase's time, cases a second
    and ``oom`` count printed.
+18. the lane decoder D1L (``huffman_lanes``) on the 12 MP camera frame
+   without restart markers (4032x3024 RGB to 4:2:0 interleaved, Q92,
+   interval 0, the port's host coder; :data:`PHOTO`): on the card's rows
+   ``ctx.coefficients`` equal to ``huffman_lanes_plain`` on the same rows
+   and lane geometry, rounds included, and to D1 (one thread a segment);
+   ``decode_to_device`` with the launch counters set to 0 just before it:
+   D1L launched once with the geometry's lanes, D1 never, the frame equal
+   to ``decode``'s and within 2 of the golden decoder's; the kernel's
+   time beside its plain form's and the bound (the scan's bytes read
+   once, the coefficients written once at 2 B); then frames of the same
+   size where lanes resynchronise late or never (a flat frame and one
+   tiling a random 16x16 MCU): equal to D1, their rounds and time
+   printed.
 
 The comparison rules (the tie rules, ``card_vs_cpu``, ``decode_parts``)
 live in ``gpujpeg_tpu_torch/tools/checks.py``, shared with the soak; a
@@ -221,8 +235,9 @@ import numpy as np
 import torch
 
 from gpujpeg_tpu_torch.tools.checks import (
-    F32_DOT_REL, F32_EVALS, TIE_EPS, CheckError, card_vs_cpu, context,
-    decode_parts, differing_segments, golden_quotients, tie_segments)
+    F32_DOT_REL, F32_EVALS, PIXEL_STEP, TIE_EPS, CheckError, card_vs_cpu,
+    context, decode_parts, differing_segments, golden_quotients,
+    tie_segments)
 
 H8K, W8K, QUALITY = 4320, 7680, 75
 PSNR_DB = 0.1
@@ -1803,8 +1818,8 @@ def phase_small_decode(gj) -> None:
     xf_id = transform_consts_tensor((None, None), "cuda")
     planar = ("PF_422_U8_P1020", "PF_444_U8_P0P1P2", "PF_422_U8_P0P1P2",
               "PF_420_U8_P0P1P2")
-    old = dmod.CPU_SEGMENT_THRESHOLD
-    dmod.CPU_SEGMENT_THRESHOLD = 0
+    old = dmod.CPU_SEGMENT_THRESHOLD, dmod.CPU_BLOCK_THRESHOLD
+    dmod.CPU_SEGMENT_THRESHOLD = dmod.CPU_BLOCK_THRESHOLD = 0
     n = n_eq = 0
     try:
         for (sname, in_pf, sub, inter), (w, h), opf in (
@@ -1892,7 +1907,7 @@ def phase_small_decode(gj) -> None:
                 fail(f"phase 12: {sname} {w}x{h} -> {opf}: the card differs "
                      "from the CPU path beyond .5 IDCT ties")
     finally:
-        dmod.CPU_SEGMENT_THRESHOLD = old
+        dmod.CPU_SEGMENT_THRESHOLD, dmod.CPU_BLOCK_THRESHOLD = old
     print(f"phase 12: {n} small decodes ({len(SMALL_DECODES)} stream plans "
           f"x 17x13, 200x136 x output formats) on the card: {n_eq} equal to "
           f"the CPU plain path's, the others outside .5 ties", flush=True)
@@ -2470,12 +2485,21 @@ def phase_batch(gj, img: np.ndarray, data: bytes, card: str) -> list:
         gj.ImageParameters(width=200, height=136,
                            color_space=gj.ColorSpace.RGB,
                            pixel_format=gj.PixelFormat.PF_444_U8_P012))
+    tiny = gj.Encoder(backend="golden").encode(
+        make_image(32, 40).reshape(-1),
+        gj.Parameters(quality=QUALITY, restart_interval=2),
+        gj.ImageParameters(width=40, height=32,
+                           color_space=gj.ColorSpace.RGB,
+                           pixel_format=gj.PixelFormat.PF_444_U8_P012))
     main = streams["main path 8K"]
-    mixed = [main[0], streams["(a) 4K"][0], small, main[1]]
+    mixed = [main[0], streams["(a) 4K"][0], small, tiny, main[1]]
     dec = gj.Decoder(backend="torch", device="cuda")
-    if not dec._golden_route(dec._job(gj.read_image(small)).plan):
-        fail("phase 14 (iii): the 200x136 stream does not take the golden "
-             "route")
+    if dec._golden_route(dec._job(gj.read_image(small)).plan):
+        fail("phase 14 (iii): the 200x136 stream without restart markers "
+             "does not take the lane route")
+    if not dec._golden_route(dec._job(gj.read_image(tiny)).plan):
+        fail("phase 14 (iii): the 40x32 stream (under 32 segments) does "
+             "not take the golden route")
     outs = dec.decode_batch(mixed)
     for i, d in enumerate(mixed):
         w, oi = dec.decode(d)
@@ -2500,7 +2524,8 @@ def phase_batch(gj, img: np.ndarray, data: bytes, card: str) -> list:
              "host decode")
     del dev, outs
     print("phase 14 (iii): a mixed batch (8K, 4K to RGB, 200x136 on the "
-          "golden route, 8K) equals the per-frame decodes; a corrupt "
+          "lane route, 40x32 on the golden route, 8K) equals the "
+          "per-frame decodes; a corrupt "
           "stream in the middle raised JpegParseError and a decode after "
           "it succeeded; output_to_device through the batch gave CUDA "
           "tensors equal to the host decode", flush=True)
@@ -3138,6 +3163,135 @@ def phase_soak(card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the lane decoder D1L on the 12 MP camera frame
+# ---------------------------------------------------------------------------
+
+#: phase 18's camera frame: height, width and quality (4:2:0 interleaved,
+#: no restart markers: cjpeg's defaults at the 12 MP 4:3 size)
+PHOTO = (3024, 4032, 92)
+#: the 12 MP frame's 8x8 blocks
+PHOTO_BLOCKS = 285_768
+
+
+def phase_lanes(gj, card: str) -> tuple[dict, dict]:
+    """Phase 18: D1L on the card's rows of the 12 MP camera frame
+    (:data:`PHOTO`) against its plain form, rounds included, and D1;
+    ``decode_to_device`` with the launch counters set to 0 just before
+    it; the kernel timed beside its plain form and the bound; then the
+    flat and tiled frames against D1, their rounds and times printed.
+    Returns (the kernel's row, its launches on the main path)."""
+    from gpujpeg_tpu_torch.ops import decode
+    t_phase = time.perf_counter()
+    H, W, q = PHOTO
+    image = gj.ImageParameters(width=W, height=H,
+                               color_space=gj.ColorSpace.RGB,
+                               pixel_format=gj.PixelFormat.PF_444_U8_P012)
+    params = gj.Parameters(quality=q, restart_interval=0, interleaved=True) \
+        .with_chroma_subsampling(420)
+    enc = gj.Encoder(backend="golden")
+
+    def parts(data: bytes):
+        """(decode context, rows on the card, D1's operands)."""
+        _, plan, _, ctx, rows = decode_parts(data, image, "cuda")
+        if not ctx.lanes or plan.n_segments != 1 \
+                or plan.n_blocks != PHOTO_BLOCKS:
+            fail(f"phase 18: the {W}x{H} stream is not one segment of "
+                 f"{PHOTO_BLOCKS} blocks on the lane route")
+        t = ctx.tables
+        return ctx, rows, (rows, ctx.seg_start, ctx.seg_count,
+                           ctx.block_comp, t.wide, t.maxcode, t.delta,
+                           t.huffval, t.dc_slot, t.ac_slot)
+
+    data = enc.encode(make_image(H, W).reshape(-1), params, image)
+    ctx, rows, d1 = parts(data)
+    t = ctx.tables
+    geo = ctx.geo
+    f = decode._geometry_fields(geo)
+    coeff = ctx.coefficients(rows)
+    rounds = int(ctx.rounds.item())
+    (coeff_p, rounds_p), plain_ms = cuda_ms_once(
+        lambda: decode.huffman_lanes_plain(
+            rows, geo, ctx.n_blocks, t.wide, t.maxcode, t.delta, t.huffval,
+            t.dc_slot, t.ac_slot))
+    coeff_1 = decode.huffman_decode(*d1)
+    bad_p = int((coeff != coeff_p).sum())
+    bad_1 = int((coeff != coeff_1).sum())
+    print(f"phase 18: D1L huffman_lanes {W}x{H} Q{q} 4:2:0 interleaved, no "
+          f"restart markers: {len(data)} B, {ctx.n_blocks} blocks, "
+          f"{f['n_lanes']} lanes of {f['lane_bits']} bits, {rounds} rounds "
+          f"(plain {int(rounds_p.item())}); {bad_p} coefficients differ from "
+          f"the plain version on the same rows and geometry, {bad_1} from "
+          f"D1's", flush=True)
+    if bad_p or bad_1 or rounds != int(rounds_p.item()):
+        fail("phase 18: D1L disagrees with its plain version or D1")
+    del coeff_p, coeff_1
+
+    dec = gj.Decoder(backend="torch", device="cuda")
+    gold = gj.Decoder(backend="golden")
+    for d in (dec, gold):
+        d.set_output_format(gj.ColorSpace.RGB, gj.PixelFormat.PF_444_U8_P012)
+    raw, _ = dec.decode(data)
+    want, _ = gold.decode(data)
+    torch.cuda.synchronize()
+    decode.huffman_lanes.launches = decode.huffman_lanes.lanes = 0
+    decode.huffman_decode.launches = 0
+    on_card, _ = dec.decode_to_device(data)
+    torch.cuda.synchronize()
+    launches = {"huffman_lanes": decode.huffman_lanes.launches,
+                "lanes": decode.huffman_lanes.lanes,
+                "huffman_decode": decode.huffman_decode.launches}
+    gap = int(np.abs(raw.astype(np.int16) - want.astype(np.int16)).max())
+    same = np.array_equal(on_card.cpu().numpy().reshape(-1), raw.reshape(-1))
+    print(f"phase 18: decode_to_device of the stream: launches {launches}; "
+          f"{'equal to' if same else 'DIFFERS from'} decode's frame, which "
+          f"is within {gap} of the golden decoder's", flush=True)
+    if launches != {"huffman_lanes": 1, "lanes": f["n_lanes"],
+                    "huffman_decode": 0}:
+        fail("phase 18: decode_to_device did not take D1L once")
+    if not same or gap > PIXEL_STEP:
+        fail(f"phase 18: the frame differs from decode's or the golden "
+             f"decoder's by more than {PIXEL_STEP}")
+    del dec, gold, raw, want, on_card
+
+    ms = cuda_ms(lambda: ctx.coefficients(rows), 10)
+    bnd = bound(int(f["bits"].sum()) // 8 + ctx.n_blocks * 64 * 2)
+    print(f"phase 18: {card}: huffman_lanes {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
+          f"({bnd['bound_by']}: the scan read once, the coefficients "
+          f"written once at 2 B)", flush=True)
+    row = {"name": "huffman_lanes", "route": "cuda",
+           "source": "gpujpeg_tpu_torch/csrc/huffman_lanes.cu",
+           "replaces": None, "launches": 0, "max_abs_err": 0, "ms": ms,
+           "plain_ms": plain_ms, **bnd, "library_ms": None}
+    del ctx, rows, d1, coeff
+
+    tile = np.random.default_rng(18).integers(
+        120, 136, (16, 16, 3), dtype=np.uint8)
+    for what, frame in (("flat", np.full((H, W, 3), 77, np.uint8)),
+                        ("tiled", np.tile(tile, (H // 16, W // 16, 1)))):
+        data = enc.encode(frame.reshape(-1), params, image)
+        ctx, rows, d1 = parts(data)
+        f = decode._geometry_fields(ctx.geo)
+        coeff, first_ms = cuda_ms_once(lambda: ctx.coefficients(rows))
+        rounds = int(ctx.rounds.item())
+        ms = cuda_ms(lambda: ctx.coefficients(rows), 3)
+        coeff_1, d1_ms = cuda_ms_once(lambda: decode.huffman_decode(*d1))
+        bad = int((coeff != coeff_1).sum())
+        print(f"phase 18: {card}: {what} frame, {len(data)} B, "
+              f"{f['n_lanes']} lanes: {rounds} rounds (the bound "
+              f"{f['max_lanes']}), huffman_lanes {ms:.4f} ms (first call "
+              f"{first_ms:.4f}), D1 {d1_ms:.4f} ms; {bad} coefficients "
+              f"differ from D1's", flush=True)
+        if bad or not 1 <= rounds <= f["max_lanes"]:
+            fail(f"phase 18: D1L on the {what} frame disagrees with D1 or "
+                 "passes its bound on the rounds")
+        del ctx, rows, d1, coeff, coeff_1
+    torch.cuda.empty_cache()
+    print(f"phase 18: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return row, {"huffman_lanes": launches["huffman_lanes"]}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a "
@@ -3207,6 +3361,9 @@ def main() -> None:
     sharded = phase_parallel(gj, img, data, card)
     bench16 = phase_bench(gj, card)
     soak17 = phase_soak(card)
+    lrow, llaunches = phase_lanes(gj, card)
+    rows.append(lrow)
+    launches.update(llaunches)
     for r in rows:
         r["launches"] = launches[r["name"]]
         r["sharded_launches"] = sharded.get(r["name"], {})

@@ -52,6 +52,7 @@ SIGNATURES = {
                        _P],
     "gj_huffman_decode": [_P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I,
                           _P, _P],
+    "gj_huffman_lanes": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P],
     "gj_idct_rgb": [_P, _I, _I, _P, _I, _P, _P, _I, _P, _P],
     "gj_preprocess_planes": [_P, _P, _P, _I, _P, _P],
     "gj_fdct_quant_planes": [_P, _P, _I, _P, _I, _P, _P, _P, _P],

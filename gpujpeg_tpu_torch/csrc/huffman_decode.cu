@@ -19,10 +19,11 @@
 // One thread per restart segment, as GPUJPEG's decoder and the reference's
 // unit of parallelism: the thread keeps a 64-bit bit accumulator and decodes
 // its blocks in order with per-component DC prediction reset at the segment
-// start. Symbol lookup is K2's `lookup_sym`: a hit in `wide` (whose entries
-// are the reference lookup's by construction), else s_len = 9 + #(peek16 >=
-// maxcode[l]) over l = 9..16 and huffval[clip(code + delta[s_len], 0, 255)];
-// s_len == 17 is an invalid code (symbol 0, one bit). Corrupt-stream guards
+// start. Symbol lookup is K2's `lookup_sym` (huffman_sym.cuh): a hit in
+// `wide` (whose entries are the reference lookup's by construction), else
+// s_len = 9 + #(peek16 >= maxcode[l]) over l = 9..16 and
+// huffval[clip(code + delta[s_len], 0, 255)]; s_len == 17 is an invalid code
+// (symbol 0, one bit). Corrupt-stream guards
 // are K2's: reads past wcap see zero words, and a position k + run > 63
 // writes nothing and ends the block after consuming the symbol's value bits.
 //
@@ -47,10 +48,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "huffman_sym.cuh"
+
 namespace {
 
-constexpr int kMaxSlots = 4;
-constexpr int kWideBits = 11;
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kRow4 = 17;  // int4s of a lane's row: 64 ints + 4 spread banks
@@ -64,24 +65,6 @@ struct Smem {
   int delta[kMaxSlots * 17];
   int dc[4], ac[4];
 };
-
-__device__ __forceinline__ int shl1(int n) {  // 1 << n, 0 for n >= 32
-  return n >= 32 ? 0 : (int)(1u << n);
-}
-
-// Chunk `ch` (words 4 ch .. 4 ch + 3) of the rows; zero past `row_end`
-// (the reading row's end), and word by word at the tensor's last chunk.
-__device__ __forceinline__ uint4 load_chunk(const uint32_t* __restrict__ rows,
-                                            long long ch, long long row_end,
-                                            long long total) {
-  const long long w0 = ch * 4;
-  if (w0 >= row_end) return make_uint4(0u, 0u, 0u, 0u);
-  if (w0 + 4 <= total) return __ldg(reinterpret_cast<const uint4*>(rows) + ch);
-  uint4 v = make_uint4(rows[w0], 0u, 0u, 0u);
-  if (w0 + 1 < total) v.y = rows[w0 + 1];
-  if (w0 + 2 < total) v.z = rows[w0 + 2];
-  return v;
-}
 
 __global__ void __launch_bounds__(kThreads)
 huffman_decode_kernel(const uint32_t* __restrict__ rows, int wcap,
@@ -181,36 +164,11 @@ huffman_decode_kernel(const uint32_t* __restrict__ rows, int wcap,
         const bool is_dc = k == 0;
         const int slot = is_dc ? ds : as;
         int sym, ln;
-        const int q = sm.wide[(slot << kWideBits) | (view >> (32 - kWideBits))];
-        if (q & 31) {
-          sym = q >> 5;
-          ln = q & 31;
-        } else {
-          const int peek16 = (int)(view >> 16);
-          int len = 9;
-#pragma unroll
-          for (int l = 9; l <= 16; ++l)
-            len += peek16 >= sm.maxcode[slot * 18 + l];
-          if (len == 17) {  // invalid code: symbol 0, one bit
-            sym = 0;
-            ln = 1;
-          } else {
-            int v = (peek16 >> (16 - len)) + sm.delta[slot * 17 + len];
-            v = min(max(v, 0), 255);
-            sym = sm.huffval[slot * 256 + v];
-            ln = len;
-          }
-        }
+        lookup_sym(sm.wide, sm.maxcode, sm.delta, sm.huffval, slot, view, sym,
+                   ln);
         const int cat = is_dc ? sym : (sym & 15);
         const int run = is_dc ? 0 : (sym >> 4);
-        int val = 0;
-        if (cat > 0) {
-          const int sh = min(cat, 16);
-          const int vraw = (int)((view << ln) >> (32 - sh));
-          val = vraw < shl1(cat - 1)
-                    ? (int)((uint32_t)vraw - (uint32_t)shl1(cat) + 1u)
-                    : vraw;
-        }
+        const int val = extend_value(view, ln, cat);
         skip(ln + cat);
         if (is_dc) {
           const int pred =

@@ -8,10 +8,13 @@ and the NumPy postprocess. Backend ``"torch"`` runs the Huffman decode,
 IDCT and postprocess on a torch device (``ops/pipeline.py``) for every
 plan (any sampling, interleaved or not, 1/3/4 components) and every
 output pixel format and colour space: hand-written CUDA kernels on
-``"cuda"``, their plain torch versions on ``"cpu"``. Like the reference,
-streams with few segments take the host decoder
-(gpujpeg_decoder.c:238-252), streams without restart markers among
-them.
+``"cuda"``, their plain torch versions on ``"cpu"``; a stream without
+restart markers (each scan one segment) takes the lane decoder D1L
+(``ops/decode.py``). Like the reference (gpujpeg_decoder.c:238-252),
+streams with restart markers in fewer than
+:data:`CPU_SEGMENT_THRESHOLD` segments take the host decoder; streams
+without them, by the frame's work: fewer than
+:data:`CPU_BLOCK_THRESHOLD` blocks.
 
 :meth:`Decoder.decode_batch` pipelines a frame sequence: the next
 frame's parse and row build run on the host while earlier frames'
@@ -33,6 +36,7 @@ import torch
 
 from ..ops import golden
 from ..ops.blocks import blocks_to_plane
+from ..ops.decode import lane_eligible
 from ..ops.preprocess import postprocess
 from ..params import ImageParameters, Parameters
 from ..plan import make_plan
@@ -42,9 +46,15 @@ from ..types import ColorSpace, PixelFormat, SamplingFactor
 
 BACKENDS = ("torch", "golden")
 
-#: Below this many segments the host decoder wins
-#: (reference: gpujpeg_decoder.c:238 uses 32).
+#: Below this many segments a stream with restart markers takes the host
+#: decoder (reference: gpujpeg_decoder.c:238 uses 32).
 CPU_SEGMENT_THRESHOLD = 32
+#: A stream without restart markers (the lane route, one segment a scan)
+#: of fewer 8x8 blocks than this takes the host decoder, which decodes it
+#: faster than the card route's fixed cost a call (the crossover measured
+#: on the H100, PERF.md); the reference sends every such stream to the
+#: host. 0 sends every such frame to the device.
+CPU_BLOCK_THRESHOLD = 128
 
 
 def huffman_maps(info) -> tuple[list, list]:
@@ -189,9 +199,8 @@ class Decoder:
         when the stream takes the device route — the analog of the
         reference's custom-CUDA-buffer outputs
         (gpujpeg_decoder.c:286-317). Streams that take the host route
-        (the golden backend, fewer than :data:`CPU_SEGMENT_THRESHOLD`
-        segments, no restart markers) return the host NumPy array, as
-        the reference does."""
+        (the golden backend, or a frame under :meth:`_golden_route`'s
+        thresholds) return the host NumPy array, as the reference does."""
         self.output_to_device = True
         try:
             return self.decode(data)
@@ -325,11 +334,15 @@ class Decoder:
                     ac_by_comp, out_image)
 
     def _golden_route(self, plan) -> bool:
-        """True when a stream takes the host decoder: the golden backend,
-        or fewer than :data:`CPU_SEGMENT_THRESHOLD` segments (streams
-        without restart markers among them)."""
-        return (self.backend == "golden"
-                or plan.n_segments < CPU_SEGMENT_THRESHOLD)
+        """True when a stream takes the host decoder: the golden backend;
+        on the lane route (no restart markers) a frame of fewer than
+        :data:`CPU_BLOCK_THRESHOLD` blocks, else fewer than
+        :data:`CPU_SEGMENT_THRESHOLD` segments."""
+        if self.backend == "golden":
+            return True
+        if lane_eligible(plan):
+            return plan.n_blocks < CPU_BLOCK_THRESHOLD
+        return plan.n_segments < CPU_SEGMENT_THRESHOLD
 
     def _decode_golden(self, plan, info, scan_data, segments_by_scan,
                        dc_by_comp, ac_by_comp, out_image) -> np.ndarray:

@@ -27,8 +27,11 @@ K7 and the ``merge_and_stuff`` dispatch (K8-K11) on the second route.
 ``_decode_device_v2``): a per-(plan, output, tables) :class:`_DecContext`
 holds the decode tables, IDCT operators and geometry on the decoder's
 device; :func:`decode_device` builds the destuffed segment rows on the
-host, uploads them and takes one of two routes after D1 huffman_decode
-(ops/decode.py), the counterpart of K2's Huffman half, K4 and K5:
+host, uploads them and takes one of two routes after the Huffman decode:
+D1 huffman_decode (ops/decode.py), the counterpart of K2's Huffman half,
+K4 and K5, or, for a stream without restart markers (each scan one
+segment), D1L huffman_lanes, which cuts each scan into lanes of bits that
+decode at once (:func:`decode.lane_eligible`):
 
 * three full-resolution components decoded to interleaved RGB
   (:func:`decode_eligible`; the reference's px branch):
@@ -130,7 +133,8 @@ from ..trace import Tracer
 from .dct import fdct_quant, fdct_quant_planes, idct_planes, idct_rgb
 from .decode import (
     build_dec_tables_v2, build_rows, check_cover, huffman_decode,
-    quant_slots, table_slots, wide_quick_tables)
+    huffman_lanes, lane_eligible, lane_geometry, lane_segments, quant_slots,
+    table_slots, wide_quick_tables)
 from .entropy import build_seg_geometry, huffman_blocks, merge_stuff
 from .huffman_encode import compact_segments
 from .preprocess import (
@@ -446,9 +450,11 @@ PINNED_TAKEN = "allocated_bytes.allocated"
 
 class _DecContext:
     """The decode operands of one plan, output and table set: tables,
-    IDCT operators and segment geometry, then the D2 route's
-    inverse-transform constants or the plan tail's block and output
-    geometry."""
+    IDCT operators and segment geometry (for a plan without restart
+    markers, the lane route's segments and its last rows' lane
+    geometry), then the D2
+    route's inverse-transform constants or the plan tail's block and
+    output geometry."""
 
     def __init__(self, plan: CoderPlan, out_image, tables,
                  device: torch.device):
@@ -466,6 +472,16 @@ class _DecContext:
         self.seg_start = t(plan.seg_block_start)
         self.seg_count = t(plan.seg_block_count)
         self.block_comp = t(plan.block_comp)
+        self.n_blocks = len(plan.block_comp)
+        #: the lane route (D1L): each scan one segment, no restart markers
+        self.lanes = lane_eligible(plan)
+        if self.lanes:
+            self.lane_segs = lane_segments(plan)
+            #: the lane geometry of the rows that :meth:`rows` built last
+            self.geo = None
+            #: the last lane decode's rounds (a device tensor), and in
+            #: host memory once :meth:`run` traced it
+            self.rounds, self._rounds_host = None, None
         self.rgb_route = decode_eligible(plan, out_image)
         if self.rgb_route:
             self.xf = transform_consts_tensor(
@@ -476,13 +492,40 @@ class _DecContext:
             self.blocks = block_geometry(plan, device)
             self.out = out_geometry(plan, out_image, device)
 
+    def rows(self, scan_data, segments_by_scan) -> np.ndarray:
+        """The plan's (S, wcap) int32 segment rows (:func:`build_rows`); on
+        the lane route also their lane geometry, whose lanes cover each
+        segment's data and not the zero words past it."""
+        if not self.lanes:
+            return build_rows(self.plan, scan_data, segments_by_scan)
+        words = np.zeros(self.plan.n_segments, np.int64)
+        rows = build_rows(self.plan, scan_data, segments_by_scan, words)
+        self.geo = lane_geometry(self.lane_segs, words * 32)
+        return rows
+
     def coefficients(self, rows: torch.Tensor) -> torch.Tensor:
         """(S, wcap) int32 rows -> (NB, 64) int32 scan-order coefficients
-        by D1."""
+        by D1, or on the lane route by D1L over the lane geometry of the
+        rows that :meth:`rows` built last (another frame's of the plan
+        gives the same coefficients, in other rounds)."""
         t = self.tables
-        return huffman_decode(rows, self.seg_start, self.seg_count,
-                              self.block_comp, t.wide, t.maxcode, t.delta,
-                              t.huffval, t.dc_slot, t.ac_slot)
+        if not self.lanes:
+            return huffman_decode(rows, self.seg_start, self.seg_count,
+                                  self.block_comp, t.wide, t.maxcode,
+                                  t.delta, t.huffval, t.dc_slot, t.ac_slot)
+        if self.geo is None:
+            raise ValueError("the lane route decodes rows that "
+                             "_DecContext.rows built")
+        out, self.rounds = huffman_lanes(rows, self.geo, self.n_blocks,
+                                         t.wide, t.maxcode, t.delta,
+                                         t.huffval, t.dc_slot, t.ac_slot)
+        return out
+
+    def lane_rounds(self) -> int:
+        """The rounds of the last lane decode that :meth:`run` traced; on
+        the card read after the decode's sync, from the pinned copy that
+        :meth:`run` queued behind the kernels."""
+        return int(self._rounds_host[0])
 
     def pixels(self, coeff: torch.Tensor,
                clock: Tracer | None = None) -> torch.Tensor:
@@ -503,8 +546,24 @@ class _DecContext:
     def run(self, rows: torch.Tensor,
             clock: Tracer | None = None) -> torch.Tensor:
         """(S, wcap) int32 rows on the context's device -> the flat uint8
-        raw frame; ``clock`` is marked after D1, the IDCT stage and D3."""
-        coeff = self.coefficients(rows)
+        raw frame; ``clock`` is marked after D1 (or D1L), the IDCT stage
+        and D3. On the lane route ``clock`` gets the span
+        ``gpujpeg.dec.lanes`` around D1L's enqueue (its count the lanes)
+        and the rounds are copied to host memory behind the kernels
+        (:meth:`lane_rounds`)."""
+        if self.lanes and clock is not None:
+            clock.open("gpujpeg.dec.lanes")
+            coeff = self.coefficients(rows)
+            clock.close(int(self.geo[1]))
+            if self.device.type == "cuda":
+                if self._rounds_host is None:
+                    self._rounds_host = torch.empty(1, dtype=torch.int32,
+                                                    pin_memory=True)
+                self._rounds_host.copy_(self.rounds, non_blocking=True)
+            else:
+                self._rounds_host = self.rounds
+        else:
+            coeff = self.coefficients(rows)
         _mark(clock)
         raw = self.pixels(coeff, clock)
         _mark(clock)
@@ -546,7 +605,7 @@ def decode_prep(decoder, plan: CoderPlan, info, scan_data,
     if tr is not None:
         tr.close()
         tr.open("gpujpeg.dec.rows")
-    rows = build_rows(plan, scan_data, segments_by_scan)
+    rows = ctx.rows(scan_data, segments_by_scan)
     if tr is not None:
         tr.close(rows.nbytes)
     return ctx, rows
@@ -596,6 +655,8 @@ def decode_device(decoder, plan: CoderPlan, info, scan_data,
     if tr is not None:
         (st.duration_huffman_coder, st.duration_dct_quantization,
          st.duration_postprocessor) = tr.durations()
+        if ctx.lanes:
+            tr.count("gpujpeg.dec.rounds", ctx.lane_rounds())
     return raw
 
 

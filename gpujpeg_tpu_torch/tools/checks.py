@@ -142,14 +142,13 @@ def decode_parts(data: bytes, out_image, device):
     """(info, plan, golden decode inputs, decode context, rows on
     ``device``) of a stream decoded to ``out_image``."""
     from ..models.decoder import Decoder, huffman_maps
-    from ..ops.decode import build_rows
     from ..ops.pipeline import _dec_context
     from ..stream.reader import read_image
     info = read_image(data)
     plan, scan_data, segs = Decoder(backend="golden")._plan_from_info(info)
     dc, ac = huffman_maps(info)
     ctx = _dec_context({}, plan, info, dc, ac, out_image, torch.device(device))
-    rows = torch.from_numpy(build_rows(plan, scan_data, segs)).to(device)
+    rows = torch.from_numpy(ctx.rows(scan_data, segs)).to(device)
     return info, plan, (plan, scan_data, segs, dc, ac), ctx, rows
 
 

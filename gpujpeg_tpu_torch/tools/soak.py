@@ -13,8 +13,8 @@ Case ``i`` of seed ``s`` is drawn from its own generator,
 ``np.random.default_rng([s, i])`` (:func:`case`; the input and the
 corrupt streams from ``[s, i, 1]`` and ``[s, i, 2]``), so a failure is
 rebuilt alone with ``--seed s --index i``. Every stream takes the device
-route (``CPU_SEGMENT_THRESHOLD = 0``). On the card each case is held to
-two references:
+route (``CPU_SEGMENT_THRESHOLD = CPU_BLOCK_THRESHOLD = 0``). On the card
+each case is held to two references:
 
 1. the port's CPU route (the kernels' plain versions) on the same input:
    the stream equal, or equal in every segment without a .5 DCT tie
@@ -275,8 +275,11 @@ def _corrupt(co: Coders, c: dict, bad: bytes) -> tuple[str | None, str]:
 
 def run_case(co: Coders, c: dict) -> tuple[list[str], Counter]:
     """One case on ``co``: (its failures, the outcomes of its corrupt
-    streams). Raises :class:`CudaError` on a CUDA error."""
+    streams, and for a case at interval 0 ``interval 0`` and the lanes
+    its card decode launched, ``interval 0 lanes``). Raises
+    :class:`CudaError` on a CUDA error."""
     from . import checks
+    from ..ops.decode import huffman_lanes
     fails, outcomes = [], Counter()
     raw = raw_input(c)
     params, image = setup(c)
@@ -302,7 +305,11 @@ def run_case(co: Coders, c: dict) -> tuple[list[str], Counter]:
         return data
 
     def decode():
+        before = huffman_lanes.lanes
         got, oi = co.dec.decode(data)
+        if c["ri"] == 0:
+            outcomes["interval 0"] += 1
+            outcomes["interval 0 lanes"] += huffman_lanes.lanes - before
         want, _ = co.gold_dec.decode(data)
         gap = pixel_gap(got, want)
         if gap:
@@ -385,8 +392,8 @@ def soak(seed: int, device="cuda", cases: int | None = None,
                 lines, outcomes = [f"CUDA error, soak stopped: {e}"], Counter()
             report([fail_line(c, line) for line in lines], 1, outcomes)
 
-    old = dmod.CPU_SEGMENT_THRESHOLD
-    dmod.CPU_SEGMENT_THRESHOLD = 0
+    old = dmod.CPU_SEGMENT_THRESHOLD, dmod.CPU_BLOCK_THRESHOLD
+    dmod.CPU_SEGMENT_THRESHOLD = dmod.CPU_BLOCK_THRESHOLD = 0
     t0 = time.perf_counter()
     try:
         pool = [threading.Thread(target=worker) for _ in range(threads)]
@@ -395,7 +402,7 @@ def soak(seed: int, device="cuda", cases: int | None = None,
         for t in pool:
             t.join()
     finally:
-        dmod.CPU_SEGMENT_THRESHOLD = old
+        dmod.CPU_SEGMENT_THRESHOLD, dmod.CPU_BLOCK_THRESHOLD = old
     res["cases_per_s"] = res["cases"] / (time.perf_counter() - t0)
     return res
 

@@ -12,7 +12,10 @@ and no torch function is called.
 
 A span records its name, its start and end on ``time.perf_counter_ns()``
 (the clock of ``time.perf_counter``), the index of its parent span (-1
-for a root), the id of its call and, on the transfer spans, a byte count.
+for a root), the id of its call and, on the transfer spans, a byte count
+(the lanes launched on ``gpujpeg.dec.lanes``). A counter
+(:meth:`Tracer.count`) is a record of no duration whose byte count holds
+its value: ``gpujpeg.dec.rounds``, the rounds a lane decode took.
 While ``torch.profiler`` records, each span also opens a
 ``torch.profiler.record_function`` range of its name, so that the spans
 lie on the profiler's host timeline, to which the card's events are
@@ -65,6 +68,8 @@ NAMES = (
     "gpujpeg.dec.wait",         # the host waits for the card
     "gpujpeg.dec.memory_from",  # the frame to host memory (frame's bytes)
     "gpujpeg.dec.pin",          # its page-locked block (bytes taken fresh)
+    "gpujpeg.dec.lanes",        # the lane route's enqueue (lanes launched)
+    "gpujpeg.dec.rounds",       # counter: the lanes' rounds (no duration)
 )
 _CODE = {name: i for i, name in enumerate(NAMES)}
 
@@ -175,6 +180,19 @@ class Tracer:
             if nbytes is not None:
                 _cols[5][i] = nbytes
         return t
+
+    def count(self, name: str, n: int) -> None:
+        """A counter: a record of no duration, now, inside the innermost
+        open span, with ``n`` in its byte count (no profiler range)."""
+        t = time.perf_counter_ns()
+        i = _take()
+        if i >= 0:
+            c = _cols
+            c[0][i] = _CODE[name]
+            c[1][i] = self._open[-1][0] if self._open else -1
+            c[2][i] = self.call
+            c[3][i] = c[4][i] = t
+            c[5][i] = n
 
     def mark(self) -> None:
         """A stage boundary on the device: a CUDA event on the current

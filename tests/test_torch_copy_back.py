@@ -76,7 +76,7 @@ def _pin_spans(s) -> np.ndarray:
 
 def test_names_keep_their_indices():
     assert trace.NAMES[:len(NAMES_BEFORE)] == NAMES_BEFORE
-    assert trace.NAMES[len(NAMES_BEFORE):] == ("gpujpeg.dec.pin",)
+    assert trace.NAMES[len(NAMES_BEFORE)] == "gpujpeg.dec.pin"
 
 
 def test_cpu_decode_is_unpinned_and_unchanged():

@@ -21,7 +21,7 @@ from gpujpeg_tpu.ops import pallas_decode as ref_pd
 from gpujpeg_tpu.ops import pallas_decode_v3 as ref_v3
 from gpujpeg_tpu.stream.reader import read_image as ref_read_image
 from gpujpeg_tpu_torch.models.decoder import huffman_maps
-from gpujpeg_tpu_torch.ops import decode, dct, pipeline, preprocess as pre
+from gpujpeg_tpu_torch.ops import dct, pipeline, preprocess as pre
 from gpujpeg_tpu_torch.stream.reader import read_image
 from test_torch_decode import _assert_plane_ties, _golden_planes
 
@@ -75,7 +75,7 @@ def _port_parts(data, out_image=None):
         backend="torch", device="cpu")._plan_from_info(info)
     ctx = pipeline._dec_context({}, plan, info, *huffman_maps(info),
                                 out_image or _out(info), CPU)
-    rows = torch.from_numpy(decode.build_rows(plan, scan_data, segs))
+    rows = torch.from_numpy(ctx.rows(scan_data, segs))
     return info, plan, ctx, rows
 
 
@@ -373,9 +373,10 @@ def test_plan_tail_wrappers_check_operands():
 
 def test_foreign_stream_without_restart_markers(monkeypatch):
     """A PIL-written 4:2:0 JPEG (no restart markers, no APP13): one
-    segment per scan, which the decoder sends to the golden route; with
-    no golden route, D1 decodes each scan in one thread and the plan
-    tail matches the golden decoder outside .5 ties."""
+    segment per scan, which the decoder sends to the golden route below
+    the block threshold; with no golden route, the lane route D1L decodes
+    the scan and the plan tail matches the golden decoder outside .5
+    ties."""
     import io
     from PIL import Image
     buf = io.BytesIO()
@@ -386,7 +387,7 @@ def test_foreign_stream_without_restart_markers(monkeypatch):
     expect, _ = port.Decoder(backend="golden").decode(data)
     np.testing.assert_array_equal(
         port.Decoder(backend="torch", device="cpu").decode(data)[0], expect)
-    monkeypatch.setattr(dmod, "CPU_SEGMENT_THRESHOLD", 0)
+    monkeypatch.setattr(dmod, "CPU_BLOCK_THRESHOLD", 0)
     raw, oi = port.Decoder(backend="torch", device="cpu").decode(data)
     _, plan, ctx, rows = _port_parts(data, _out(info, oi.pixel_format))
     assert rows.shape[0] == 1 and not ctx.rgb_route

@@ -76,15 +76,15 @@ def soak(seed: int, cases: int | None = None,
     """Run ``cases`` cases, or as many as fit in ``seconds``, from
     ``seed`` with every stream on the device route; (cases, failures)."""
     t_end = time.time() + (seconds or 0)
-    old = dmod.CPU_SEGMENT_THRESHOLD
-    dmod.CPU_SEGMENT_THRESHOLD = 0
+    old = dmod.CPU_SEGMENT_THRESHOLD, dmod.CPU_BLOCK_THRESHOLD
+    dmod.CPU_SEGMENT_THRESHOLD = dmod.CPU_BLOCK_THRESHOLD = 0
     n, fails = 0, []
     try:
         while (n < cases) if cases is not None else (time.time() < t_end):
             fails += run_case(soak_tool.case(seed, n))
             n += 1
     finally:
-        dmod.CPU_SEGMENT_THRESHOLD = old
+        dmod.CPU_SEGMENT_THRESHOLD, dmod.CPU_BLOCK_THRESHOLD = old
     return n, fails
 
 

@@ -348,3 +348,91 @@ def test_perf_trace_tool_on_the_cpu(capsys):
         for s in perf_trace.STATES]
     assert "8.0 spans a call" in lines[1] and "0.0 spans" in lines[0]
     assert trace.spans().size == 0
+
+
+#: every name of the tracer before the lane route's, at its index
+NAMES_BEFORE_LANES = tuple(ENC + DEC) + ("gpujpeg.dec.pin",)
+
+
+def test_names_keep_their_indices():
+    """Names are appended, never moved: the lane route's two follow."""
+    assert trace.NAMES[:len(NAMES_BEFORE_LANES)] == NAMES_BEFORE_LANES
+    assert trace.NAMES[len(NAMES_BEFORE_LANES):] == (
+        "gpujpeg.dec.lanes", "gpujpeg.dec.rounds")
+
+
+def _restartless(sub: int = 420) -> bytes:
+    return port.Encoder(backend="golden").encode(
+        make_test_rgb(H, W).reshape(-1),
+        _params(sub, ri=0, interleaved=True), _image())
+
+
+@pytest.mark.parametrize("to_device", [False, True])
+def test_lane_route_records_lanes_and_rounds(monkeypatch, to_device):
+    """A stream without restart markers on the device route: one
+    ``gpujpeg.dec.lanes`` span inside ``gpujpeg.dec.launch``, its count
+    the lanes launched, and one ``gpujpeg.dec.rounds`` counter of no
+    duration after the wait, its count the rounds; a call each."""
+    import gpujpeg_tpu_torch.models.decoder as dmod
+    from gpujpeg_tpu_torch.ops import pipeline
+    monkeypatch.setattr(dmod, "CPU_BLOCK_THRESHOLD", 0)
+    seen = []
+    real = pipeline.huffman_lanes
+
+    def counting(rows, geo, *a):
+        out = real(rows, geo, *a)
+        seen.append((int(geo[1]), int(out[1][0])))
+        return out
+
+    monkeypatch.setattr(pipeline, "huffman_lanes", counting)
+    data = _restartless()
+    dec = port.Decoder(backend="torch", device="cpu", perf_stats=True)
+    for _ in range(2):
+        dec.decode_to_device(data) if to_device else dec.decode(data)
+    s = trace.spans()
+    names = _names(s)
+    roots = np.flatnonzero(s["parent"] == -1)
+    assert len(roots) == 2 and len(seen) == 2
+    for k, root in enumerate(roots):
+        end = roots[k + 1] if k + 1 < len(roots) else len(s)
+        call = s[root:end]
+        got = _names(call)
+        assert got.count("gpujpeg.dec.lanes") == 1
+        assert got.count("gpujpeg.dec.rounds") == 1
+        lane = root + got.index("gpujpeg.dec.lanes")
+        assert names[s["parent"][lane]] == "gpujpeg.dec.launch"
+        assert s["start_ns"][lane] >= s["start_ns"][s["parent"][lane]]
+        assert s["end_ns"][lane] <= s["end_ns"][s["parent"][lane]]
+        rnd = root + got.index("gpujpeg.dec.rounds")
+        assert s["parent"][rnd] == root
+        assert s["start_ns"][rnd] == s["end_ns"][rnd]
+        wait = root + got.index("gpujpeg.dec.wait")
+        assert s["start_ns"][rnd] >= s["end_ns"][wait]
+        assert (s["bytes"][lane], s["bytes"][rnd]) == seen[k]
+        assert seen[k][1] >= 1
+    # the other spans as on every device-route call
+    assert [n for n in got if n not in ("gpujpeg.dec.lanes",
+                                        "gpujpeg.dec.rounds")] \
+        == (DEC[:-1] if to_device else DEC)
+
+
+def test_lane_route_records_nothing_without_perf_stats(monkeypatch):
+    import gpujpeg_tpu_torch.models.decoder as dmod
+    monkeypatch.setattr(dmod, "CPU_BLOCK_THRESHOLD", 0)
+    data = _restartless()
+    dec = port.Decoder(backend="torch", device="cpu")
+    dec.decode(data)
+    dec.decode_to_device(data)
+    dec.decode_batch([data])
+    assert trace._buf is None and trace.spans().size == 0
+
+
+@pytest.mark.parametrize("ri", [1, 4])
+def test_restart_intervals_record_no_lane_spans(monkeypatch, ri):
+    import gpujpeg_tpu_torch.models.decoder as dmod
+    monkeypatch.setattr(dmod, "CPU_SEGMENT_THRESHOLD", 0)
+    data = port.Encoder(backend="torch", device="cpu").encode(
+        make_test_rgb(H, W).reshape(-1), _params(420, ri=ri), _image())
+    dec = port.Decoder(backend="torch", device="cpu", perf_stats=True)
+    dec.decode(data)
+    _check_call(trace.spans(), DEC)
