@@ -296,6 +296,7 @@ class Decoder:
         self.stats.duration_stream = (t1 - t0) * 1e-6
 
         if tr is not None:
+            tr.count("gpujpeg.dec.tables_fresh", info.tables_fresh)
             tr.open("gpujpeg.dec.plan")
         job = self._job(info)
         if tr is not None:

@@ -18,7 +18,7 @@ import logging
 
 import numpy as np
 
-from ..tables import build_huffman_table, HuffmanTable
+from ..tables import dht_huffman_table, HuffmanTable
 from ..types import ColorSpace, PixelFormat, SamplingFactor
 from .markers import (
     Marker,
@@ -79,6 +79,9 @@ class JpegInfo:
     have_adobe: bool = False
     have_spiff: bool = False
     segment_info_found: bool = False
+    #: the DHT tables this parse derived; the others were shared from
+    #: earlier parses (``tables.dht_huffman_table``)
+    tables_fresh: int = 0
 
     @property
     def sampling(self) -> tuple[SamplingFactor, ...]:
@@ -286,9 +289,9 @@ def _parse_dht(info: JpegInfo, payload: bytes) -> None:
             raise JpegParseError(f"bad DHT Tc/Th 0x{tc_th:02x}")
         if pos + 16 > len(payload):
             raise JpegParseError("truncated DHT bits array")
-        bits = np.frombuffer(payload[pos:pos + 16], dtype=np.uint8).astype(np.int32)
+        bits = bytes(payload[pos:pos + 16])
         pos += 16
-        n = int(bits.sum())
+        n = sum(bits)
         # T.81 B.2.4.2: at most 256 values, and they must all be present
         # in the payload (a corrupt count would otherwise trip internal
         # shape checks instead of a parse error)
@@ -296,9 +299,10 @@ def _parse_dht(info: JpegInfo, payload: bytes) -> None:
             raise JpegParseError(
                 f"corrupt DHT: {n} values declared, "
                 f"{len(payload) - pos} bytes remain")
-        values = np.frombuffer(payload[pos:pos + n], dtype=np.uint8).astype(np.int32)
+        values = bytes(payload[pos:pos + n])
         pos += n
-        info.huffman_tables[(tc, th)] = build_huffman_table(bits, values)
+        info.huffman_tables[(tc, th)], fresh = dht_huffman_table(bits, values)
+        info.tables_fresh += fresh
 
 
 def _parse_dri(info: JpegInfo, payload: bytes) -> None:

@@ -16,8 +16,10 @@ All tables are NumPy arrays; device code uploads them as needed.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
+import threading
 
 import numpy as np
 
@@ -262,6 +264,46 @@ def build_huffman_table(bits, values) -> HuffmanTable:
         valptr=valptr.astype(np.int64),
         lut16=lut16,
     )
+
+
+#: distinct DHT tables whose derived forms :func:`dht_huffman_table` keeps,
+#: the least recently used dropped first: about 265 KB each, mostly ``lut16``
+DHT_TABLES = 32
+
+_dht_tables: collections.OrderedDict = collections.OrderedDict()
+_dht_lock = threading.Lock()
+
+
+def dht_huffman_table(bits: bytes, values: bytes) -> tuple[HuffmanTable, bool]:
+    """The table of one DHT table, from its 16 ``bits`` bytes and its
+    ``values`` bytes: (the table, True where this call derived it). A
+    stream's tables repeat from stream to stream (Annex K's, a video's
+    every frame), so each distinct table is derived once by
+    :func:`build_huffman_table` and then shared, its arrays read-only,
+    while it is among the :data:`DHT_TABLES` used last. The key is every
+    byte the derivation reads, so a shared table is what a rebuild would
+    give."""
+    key = bits + values          # bits is always 16 bytes: no ambiguity
+    with _dht_lock:
+        table = _dht_tables.get(key)
+        if table is not None:
+            _dht_tables.move_to_end(key)
+            return table, False
+    table = build_huffman_table(np.frombuffer(bits, np.uint8),
+                                np.frombuffer(values, np.uint8))
+    for field in dataclasses.fields(table):
+        getattr(table, field.name).setflags(write=False)
+    with _dht_lock:
+        _dht_tables[key] = table
+        if len(_dht_tables) > DHT_TABLES:
+            _dht_tables.popitem(last=False)
+    return table, True
+
+
+def clear_dht_tables() -> None:
+    """Forget every table :func:`dht_huffman_table` keeps."""
+    with _dht_lock:
+        _dht_tables.clear()
 
 
 @functools.lru_cache(maxsize=None)

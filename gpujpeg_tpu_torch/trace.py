@@ -15,7 +15,9 @@ A span records its name, its start and end on ``time.perf_counter_ns()``
 for a root), the id of its call and, on the transfer spans, a byte count
 (the lanes launched on ``gpujpeg.dec.lanes``). A counter
 (:meth:`Tracer.count`) is a record of no duration whose byte count holds
-its value: ``gpujpeg.dec.rounds``, the rounds a lane decode took.
+its value: ``gpujpeg.dec.rounds``, the rounds a lane decode took, and
+``gpujpeg.dec.tables_fresh``, the DHT tables a decode's parse derived
+rather than shared from an earlier parse (after the stream span).
 While ``torch.profiler`` records, each span also opens a
 ``torch.profiler.record_function`` range of its name, so that the spans
 lie on the profiler's host timeline, to which the card's events are
@@ -70,6 +72,7 @@ NAMES = (
     "gpujpeg.dec.pin",          # its page-locked block (bytes taken fresh)
     "gpujpeg.dec.lanes",        # the lane route's enqueue (lanes launched)
     "gpujpeg.dec.rounds",       # counter: the lanes' rounds (no duration)
+    "gpujpeg.dec.tables_fresh",  # counter: DHT tables the parse derived
 )
 _CODE = {name: i for i, name in enumerate(NAMES)}
 

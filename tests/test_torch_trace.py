@@ -16,7 +16,7 @@ from conftest import make_test_rgb
 
 import gpujpeg_tpu_torch as port
 from gpujpeg_tpu_torch import parallel as par
-from gpujpeg_tpu_torch import trace
+from gpujpeg_tpu_torch import tables, trace
 from gpujpeg_tpu_torch.models.decoder import DecoderStats
 from gpujpeg_tpu_torch.models.encoder import EncoderStats
 from gpujpeg_tpu_torch.ops.decode import build_rows
@@ -26,14 +26,18 @@ H, W = 64, 96
 ENC = ["gpujpeg.enc", "gpujpeg.enc.plan", "gpujpeg.enc.context",
        "gpujpeg.enc.upload", "gpujpeg.enc.launch", "gpujpeg.enc.wait",
        "gpujpeg.enc.memory_from", "gpujpeg.enc.stream"]
-DEC = ["gpujpeg.dec", "gpujpeg.dec.stream", "gpujpeg.dec.plan",
+FRESH = "gpujpeg.dec.tables_fresh"
+DEC = ["gpujpeg.dec", "gpujpeg.dec.stream", FRESH, "gpujpeg.dec.plan",
        "gpujpeg.dec.context", "gpujpeg.dec.rows", "gpujpeg.dec.memory_to",
        "gpujpeg.dec.launch", "gpujpeg.dec.wait", "gpujpeg.dec.memory_from"]
+#: the decode's spans that open a profiler range: all but the counter
+DEC_RANGES = [n for n in DEC if n != FRESH]
 
 
 @pytest.fixture(autouse=True)
 def empty_buffer():
     trace.clear()
+    tables.clear_dht_tables()
     yield
     trace.clear()
 
@@ -113,8 +117,10 @@ def test_decode_records_its_spans(sub, pf, to_device):
     if not to_device:
         assert nbytes["gpujpeg.dec.memory_from"] == raw.nbytes == \
             port.types.image_calculate_size(W, H, pf)
+    # the counter's value: the stream's 4 tables, derived fresh
+    assert nbytes[FRESH] == 4
     assert sum(nbytes.values()) == 2 * rows.nbytes + (
-        0 if to_device else raw.nbytes)
+        0 if to_device else raw.nbytes) + nbytes[FRESH]
 
 
 def test_one_call_id_a_call():
@@ -212,13 +218,13 @@ def test_spans_are_profiler_user_annotations(monkeypatch):
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         enc.encode(img, _params(perf_stats=True), _image())
         dec.decode(data)
-    assert entered == ENC + DEC
+    assert entered == ENC + DEC_RANGES
     ann = [(e.start_ns(), e.end_ns(), e.name())
            for e in prof.profiler.kineto_results.events()
            if e.is_user_annotation() and e.device_type() == DeviceType.CPU]
-    assert sorted(n for *_, n in ann) == sorted(ENC + DEC)
+    assert sorted(n for *_, n in ann) == sorted(ENC + DEC_RANGES)
     by_name = {n: (a, b) for a, b, n in ann}
-    for root, names in (("gpujpeg.enc", ENC), ("gpujpeg.dec", DEC)):
+    for root, names in (("gpujpeg.enc", ENC), ("gpujpeg.dec", DEC_RANGES)):
         r0, r1 = by_name[root]
         for n in names[1:]:
             assert r0 <= by_name[n][0] <= by_name[n][1] <= r1
@@ -351,14 +357,15 @@ def test_perf_trace_tool_on_the_cpu(capsys):
 
 
 #: every name of the tracer before the lane route's, at its index
-NAMES_BEFORE_LANES = tuple(ENC + DEC) + ("gpujpeg.dec.pin",)
+NAMES_BEFORE_LANES = tuple(ENC + DEC_RANGES) + ("gpujpeg.dec.pin",)
 
 
 def test_names_keep_their_indices():
-    """Names are appended, never moved: the lane route's two follow."""
+    """Names are appended, never moved: the lane route's two follow, then
+    the parse's counter."""
     assert trace.NAMES[:len(NAMES_BEFORE_LANES)] == NAMES_BEFORE_LANES
     assert trace.NAMES[len(NAMES_BEFORE_LANES):] == (
-        "gpujpeg.dec.lanes", "gpujpeg.dec.rounds")
+        "gpujpeg.dec.lanes", "gpujpeg.dec.rounds", FRESH)
 
 
 def _restartless(sub: int = 420) -> bytes:
@@ -436,3 +443,29 @@ def test_restart_intervals_record_no_lane_spans(monkeypatch, ri):
     dec = port.Decoder(backend="torch", device="cpu", perf_stats=True)
     dec.decode(data)
     _check_call(trace.spans(), DEC)
+
+
+@pytest.mark.parametrize("to_device", [False, True])
+def test_decode_counts_the_tables_its_parse_derived(to_device):
+    """``gpujpeg.dec.tables_fresh``: a counter of no duration in the root,
+    between the parse and the plan, its count the DHT tables the parse
+    derived: the stream's 4, then 0 on the next call, which shares them.
+    An untraced decode records nothing."""
+    data = _stream(420)
+    dec = port.Decoder(backend="torch", device="cpu", perf_stats=True)
+    for _ in range(2):
+        dec.decode_to_device(data) if to_device else dec.decode(data)
+    s = trace.spans()
+    names = _names(s)
+    at = [i for i, n in enumerate(names) if n == FRESH]
+    assert s["bytes"][at].tolist() == [4, 0]
+    for i in at:
+        assert names[s["parent"][i]] == "gpujpeg.dec"
+        assert s["start_ns"][i] == s["end_ns"][i]
+        assert names[i - 1] == "gpujpeg.dec.stream"
+        assert s["end_ns"][i - 1] <= s["start_ns"][i] <= s["start_ns"][i + 1]
+    tables.clear_dht_tables()
+    trace.clear()
+    off = port.Decoder(backend="torch", device="cpu")
+    off.decode_to_device(data) if to_device else off.decode(data)
+    assert trace._buf is None and trace.spans().size == 0
