@@ -234,6 +234,8 @@ import time
 import numpy as np
 import torch
 
+from gpujpeg_tpu_torch.models.decoder import plan_from_info
+from gpujpeg_tpu_torch.tables import encode_tables
 from gpujpeg_tpu_torch.tools.checks import (
     F32_DOT_REL, F32_EVALS, PIXEL_STEP, TIE_EPS, CheckError, card_vs_cpu,
     context, decode_parts, differing_segments, golden_quotients,
@@ -492,9 +494,9 @@ def e3_envelope_check(device) -> None:
           f"{int(n_ff.sum())} stuffed)", flush=True)
 
 
-def stage_ms(enc, ctx, raw, quant_zz, huff) -> np.ndarray:
+def stage_ms(ctx, raw, quant_zz, huff) -> np.ndarray:
     """Host-clock ms of the encode's stages, each ended by a sync."""
-    from gpujpeg_tpu_torch.ops.pipeline import _split_scan_bodies
+    from gpujpeg_tpu_torch.stream.writer import assemble, scan_bodies
 
     def sync():
         if ctx.device.type == "cuda":
@@ -508,9 +510,10 @@ def stage_ms(enc, ctx, raw, quant_zz, huff) -> np.ndarray:
     out, out_len, _, _ = ctx.run(x)
     sync()
     t.append(time.perf_counter())
-    bodies, sizes = _split_scan_bodies(plan, ctx, out, out_len.cpu().numpy())
+    bodies, sizes = scan_bodies(plan, [ctx.compact(out,
+                                                   out_len.cpu().numpy())])
     t.append(time.perf_counter())
-    enc._assemble(plan, quant_zz, huff, bodies, sizes)
+    assemble(plan, quant_zz, huff, bodies, sizes)
     t.append(time.perf_counter())
     return np.diff(t) * 1e3
 
@@ -540,8 +543,8 @@ def phase_encode(gj, img, params, image, plan, card: str,
     if again != data:
         fail("two encodes of one frame differ")
     ctx = next(iter(enc._contexts.values()))
-    quant_zz, huff = enc._tables(params)
-    stages = np.median([stage_ms(enc, ctx, raw, quant_zz, huff)
+    quant_zz, huff = encode_tables(params.quality)
+    stages = np.median([stage_ms(ctx, raw, quant_zz, huff)
                         for _ in range(3)], axis=0)
     rgb = torch.from_numpy(img).to(device)
     device_ms = cuda_ms(lambda: ctx.run(rgb), 10)
@@ -737,13 +740,13 @@ def dec_stage_ms(dec, data: bytes, out_image) -> np.ndarray:
     (with the context lookup), row build, upload, kernels, D2H."""
     from gpujpeg_tpu_torch.models.decoder import huffman_maps
     from gpujpeg_tpu_torch.ops.decode import build_rows
-    from gpujpeg_tpu_torch.ops.pipeline import _dec_context
+    from gpujpeg_tpu_torch.ops.pipeline import dec_context
     from gpujpeg_tpu_torch.stream.reader import read_image
     t = [time.perf_counter()]
     info = read_image(data)
-    plan, scan_data, segs = dec._plan_from_info(info)
-    ctx = _dec_context(dec._contexts, plan, info, *huffman_maps(info),
-                       out_image, dec.device)
+    plan, scan_data, segs = plan_from_info(info)
+    ctx = dec_context(dec._contexts, plan, info, *huffman_maps(info),
+                      out_image, dec.device)
     t.append(time.perf_counter())
     rows = build_rows(plan, scan_data, segs)
     t.append(time.perf_counter())
@@ -855,7 +858,7 @@ def phase_decode(gj, img, data: bytes, card: str) -> dict:
     ctx = next(iter(dec._contexts.values()))
     from gpujpeg_tpu_torch.ops.decode import build_rows
     info = read_image(data)
-    plan, sd, segs = dec._plan_from_info(info)
+    plan, sd, segs = plan_from_info(info)
     rows_d = torch.from_numpy(build_rows(plan, sd, segs)).cuda()
     device_ms = cuda_ms(lambda: ctx.run(rows_d), 10)
     print(f"phase 6: {card}: decode first call {first_ms:.3f} ms, steady "
@@ -1177,8 +1180,8 @@ def coefficient_check(gj, ctx, raw, params, image, data: bytes,
     .5 ties, the segments that hold them)."""
     from gpujpeg_tpu_torch.native import encode_segments_native
     from gpujpeg_tpu_torch.types import HuffmanType
-    golden = gj.Encoder(backend="golden")
-    quant_zz, huff = golden._tables(params)
+    from gpujpeg_tpu_torch.stream.writer import assemble, join_segments
+    quant_zz, huff = encode_tables(params.quality)
     plan = ctx.plan
     y64, eps = golden_quotients(raw, image, plan, quant_zz)
     coeff_k = ctx.coefficients(ctx.upload(raw)).cpu().numpy()
@@ -1191,8 +1194,7 @@ def coefficient_check(gj, ctx, raw, params, image, data: bytes,
         [huff[(c.comp_type, HuffmanType.AC)] for c in plan.components])
     if segs is None:
         fail("the native golden entropy coder did not build")
-    if golden._assemble(plan, quant_zz, huff,
-                        *golden._to_scan_bodies(plan, segs)) != data:
+    if assemble(plan, quant_zz, huff, *join_segments(plan, segs)) != data:
         fail(f"{what}: the stream differs from the golden entropy coder's "
              "on the kernels' own coefficients")
     return n_ties, tie_segs
@@ -1280,8 +1282,8 @@ def phase_general_encode(gj, configs: dict, card: str) -> dict:
               f"host clock); kernels device {device_ms:.4f} ms (CUDA "
               f"events)", flush=True)
         if name == "a":
-            quant_zz, huff = enc._tables(params)
-            st = np.median([stage_ms(enc, ctx, raw, quant_zz, huff)
+            quant_zz, huff = encode_tables(params.quality)
+            st = np.median([stage_ms(ctx, raw, quant_zz, huff)
                             for _ in range(3)], axis=0)
             print(f"phase 8 (a): {card}: encode stages (host clock, median "
                   f"of 3): upload {st[0]:.3f} ms, E0-E3 {st[1]:.3f} ms, "
@@ -1703,7 +1705,7 @@ def phase_general_decode(gj, img: np.ndarray, streams: dict, gold: dict,
         plan, info, coeff_h, gold_pl = gold[name[0]]
         b = pre.block_geometry(plan, "cuda")
         t = ctx.tables
-        _, sd, segs = dec._plan_from_info(info)
+        _, sd, segs = plan_from_info(info)
         coeff = ctx.coefficients(torch.from_numpy(
             build_rows(plan, sd, segs)).cuda())
         if ctx.rgb_route:       # D2's own values before the transform
@@ -3028,7 +3030,7 @@ def phase_bench(gj, card: str) -> dict:
     them), and ``Decoder.decode`` of it to the stream's colour space
     within 1 of the golden decoder's (the IDCT rule before the colour
     transform). Returns the 16K run's launches."""
-    from gpujpeg_tpu_torch.ops.pipeline import _EncContext
+    from gpujpeg_tpu_torch.ops.pipeline import EncContext
     from gpujpeg_tpu_torch.stream.reader import read_image
     from gpujpeg_tpu_torch.tools import bench, bench_suite
 
@@ -3061,8 +3063,8 @@ def phase_bench(gj, card: str) -> dict:
         if params.restart_interval != row["restart_interval"]:
             fail(f"phase 16: interval {params.restart_interval}, the suite's "
                  f"{row['restart_interval']}")
-        quant_zz, huff = gj.Encoder(backend="golden")._tables(params)
-        ctx = _EncContext(plan, quant_zz, huff, torch.device("cuda"))
+        ctx = EncContext(plan, *encode_tables(params.quality),
+                         torch.device("cuda"))
         n_ties, tie_segs = coefficient_check(
             gj, ctx, img.reshape(-1), params, image, data, "phase 16: 16K")
         del ctx
@@ -3299,7 +3301,7 @@ def main() -> None:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import gpujpeg_tpu_torch as gj
     from gpujpeg_tpu_torch import _build
-    from gpujpeg_tpu_torch.ops.pipeline import _EncContext, upload_rgb
+    from gpujpeg_tpu_torch.ops.pipeline import EncContext, upload_rgb
     from gpujpeg_tpu_torch.tools import card_line
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3319,8 +3321,8 @@ def main() -> None:
     params, image, plan = setup(gj, H8K, W8K)
     if params.restart_interval != 32:
         fail(f"restart interval {params.restart_interval}, expected 32")
-    quant_zz, huff = gj.Encoder(backend="golden")._tables(params)
-    ctx = _EncContext(plan, quant_zz, huff, torch.device("cuda"))
+    ctx = EncContext(plan, *encode_tables(params.quality),
+                     torch.device("cuda"))
     rgb = upload_rgb(img, plan, ctx.device)
     rows = phase_kernels(ctx, rgb)
     del ctx, rgb

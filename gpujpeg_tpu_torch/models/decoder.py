@@ -23,7 +23,7 @@ kernels and copies back proceed. The reference's ``_fuse_frames`` and
 no counterpart: they amortised the TPU's dispatch floor, and one frame's
 kernels already fill the card (``ops/pipeline.py``). Its
 ``_fuse_compatible`` check is the decode context cache's key
-(``pipeline._dec_context``, the last four geometries and table sets).
+(``pipeline.dec_context``, the last four geometries and table sets).
 """
 from __future__ import annotations
 
@@ -87,6 +87,50 @@ def huffman_maps(info) -> tuple[list, list]:
     return dc, ac
 
 
+def plan_from_info(info: stream_reader.JpegInfo):
+    """A parsed stream -> (its coder plan, per plan scan the scan's bytes,
+    per plan scan its (n, 2) int64 segment ranges) (analog of
+    gpujpeg_decoder_init, gpujpeg_decoder.c:158-202)."""
+    sampling = tuple(c.sampling for c in info.components)
+    sampling = sampling + (SamplingFactor(1, 1),) * (4 - len(sampling))
+    params = Parameters(
+        quality=75,  # unknown from stream; tables come from DQT anyway
+        restart_interval=info.restart_interval,
+        interleaved=info.interleaved,
+        color_space_internal=info.color_space,
+        sampling_factor=sampling,
+    )
+    image = ImageParameters(
+        width=info.width, height=info.height,
+        color_space=ColorSpace.RGB,
+        pixel_format=info.deduce_pixel_format(),
+    )
+    plan = make_plan(params, image)
+
+    # Map stream scans onto plan scans (non-interleaved plan scans are
+    # ordered by component index; foreign streams may order differently).
+    scan_data = [np.zeros(0, np.uint8)] * len(plan.scans)
+    # per scan: (n, 2) int64 [lo, hi) ranges (ScanInfo.segments)
+    segments_by_scan = [np.zeros((0, 2), np.int64) for _ in plan.scans]
+    if info.interleaved:
+        if info.scans:
+            scan_data[0] = info.scans[0].data
+            segments_by_scan[0] = info.scans[0].segments
+    else:
+        for scan in info.scans:
+            comp = scan.components[0].comp_index
+            scan_data[comp] = scan.data
+            segments_by_scan[comp] = scan.segments
+
+    # When the stream has no restart markers, the whole scan is one
+    # segment (reference: gpujpeg_common.c:640-650).
+    for i, segs in enumerate(segments_by_scan):
+        if len(segs) == 0 and scan_data[i].size:
+            segments_by_scan[i] = np.array(
+                [(0, int(scan_data[i].size))], np.int64)
+    return plan, scan_data, segments_by_scan
+
+
 def golden_planes(info, plan, coeff_scan: np.ndarray) -> list[np.ndarray]:
     """Scan-order coefficients -> the golden decoder's MCU-padded uint8
     planes, one ``(data_height, data_width)`` array per component (float64
@@ -105,7 +149,7 @@ def golden_planes(info, plan, coeff_scan: np.ndarray) -> list[np.ndarray]:
 
 class _Job(NamedTuple):
     """A parsed stream's decode operands, in the argument order of
-    ``pipeline.decode_device``."""
+    ``pipeline.decode_device`` after its context cache and device."""
     plan: object
     info: object
     scan_data: list
@@ -246,10 +290,14 @@ class Decoder:
                 if self._golden_route(job.plan):
                     raw = self._decode_golden(*job)
                 else:
-                    ctx, rows = decode_prep(self, *job)
+                    ctx, rows = decode_prep(self._contexts, self.device,
+                                            *job)
                     while len(pending) >= window:
                         collect()
-                    raw = decode_launch(self, ctx, rows, staging)
+                    raw = decode_launch(ctx, rows, staging,
+                                        not self.output_to_device)
+                    if self.capture_device_call:
+                        self.last_device_call = raw.replay
                 while len(pending) >= window:
                     collect()
                 pending.append((raw, job.out_image))
@@ -305,7 +353,11 @@ class Decoder:
             return self._decode_golden(*job), job.out_image
 
         from ..ops.pipeline import copy_back, decode_device
-        raw = decode_device(self, *job, tr)
+        raw, replay, timed = decode_device(self._contexts, self.device, *job,
+                                           tr)
+        vars(self.stats).update(timed)
+        if self.capture_device_call:
+            self.last_device_call = replay
         if self.output_to_device:
             return raw, job.out_image
         t0 = (tr.open("gpujpeg.dec.memory_from") if tr is not None
@@ -318,7 +370,7 @@ class Decoder:
     def _job(self, info) -> "_Job":
         """Parsed stream -> what a decode route takes: its plan, scans,
         segments, Huffman tables and the output's ImageParameters."""
-        plan, scan_data, segments_by_scan = self._plan_from_info(info)
+        plan, scan_data, segments_by_scan = plan_from_info(info)
         dc_by_comp, ac_by_comp = huffman_maps(info)
         out_image = ImageParameters(
             width=info.width, height=info.height,
@@ -363,46 +415,3 @@ class Decoder:
         self.stats.duration_dct_quantization = (t3 - t2) * 1e3
         self.stats.duration_postprocessor = (t4 - t3) * 1e3
         return np.asarray(raw)
-
-    # ------------------------------------------------------------------
-    def _plan_from_info(self, info: stream_reader.JpegInfo):
-        """Reconstruct the coder plan from parsed stream info
-        (analog of gpujpeg_decoder_init, gpujpeg_decoder.c:158-202)."""
-        sampling = tuple(c.sampling for c in info.components)
-        sampling = sampling + (SamplingFactor(1, 1),) * (4 - len(sampling))
-        params = Parameters(
-            quality=75,  # unknown from stream; tables come from DQT anyway
-            restart_interval=info.restart_interval,
-            interleaved=info.interleaved,
-            color_space_internal=info.color_space,
-            sampling_factor=sampling,
-        )
-        image = ImageParameters(
-            width=info.width, height=info.height,
-            color_space=ColorSpace.RGB,
-            pixel_format=info.deduce_pixel_format(),
-        )
-        plan = make_plan(params, image)
-
-        # Map stream scans onto plan scans (non-interleaved plan scans are
-        # ordered by component index; foreign streams may order differently).
-        scan_data = [np.zeros(0, np.uint8)] * len(plan.scans)
-        # per scan: (n, 2) int64 [lo, hi) ranges (ScanInfo.segments)
-        segments_by_scan = [np.zeros((0, 2), np.int64) for _ in plan.scans]
-        if info.interleaved:
-            if info.scans:
-                scan_data[0] = info.scans[0].data
-                segments_by_scan[0] = info.scans[0].segments
-        else:
-            for scan in info.scans:
-                comp = scan.components[0].comp_index
-                scan_data[comp] = scan.data
-                segments_by_scan[comp] = scan.segments
-
-        # When the stream has no restart markers, the whole scan is one
-        # segment (reference: gpujpeg_common.c:640-650).
-        for i, segs in enumerate(segments_by_scan):
-            if len(segs) == 0 and scan_data[i].size:
-                segments_by_scan[i] = np.array(
-                    [(0, int(scan_data[i].size))], np.int64)
-        return plan, scan_data, segments_by_scan

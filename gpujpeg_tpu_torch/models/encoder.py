@@ -20,10 +20,10 @@ from ..ops.huffman_encode import COMPACT_CHUNK_BYTES
 from ..ops.preprocess import preprocess, upload_raw
 from ..params import ImageParameters, Parameters
 from ..plan import CoderPlan, make_plan
-from ..stream.writer import HeaderType, JpegWriter
-from ..tables import default_huffman_table, quant_table_zz
+from ..stream.writer import HeaderType, assemble, join_segments
+from ..tables import encode_tables
 from ..trace import Tracer
-from ..types import ComponentType, HuffmanType, image_calculate_size
+from ..types import HuffmanType, image_calculate_size
 
 BACKENDS = ("torch", "golden")
 
@@ -75,18 +75,6 @@ class Encoder:
         self._contexts: dict = {}
 
     # ------------------------------------------------------------------
-    def _tables(self, params: Parameters):
-        quant_zz = {
-            0: quant_table_zz(ComponentType.LUMINANCE, params.quality),
-            1: quant_table_zz(ComponentType.CHROMINANCE, params.quality),
-        }
-        huff = {
-            (ct, ht): default_huffman_table(ct, ht)
-            for ct in (ComponentType.LUMINANCE, ComponentType.CHROMINANCE)
-            for ht in (HuffmanType.DC, HuffmanType.AC)
-        }
-        return quant_zz, huff
-
     def warmup(self, params: Parameters, image: ImageParameters) -> None:
         """Prepare for a geometry before the first real encode (the
         analog of the reference's gpujpeg_encoder_allocate and
@@ -167,7 +155,7 @@ class Encoder:
         if tr is not None:
             tr.open("gpujpeg.enc.plan")
         plan = make_plan(params, image)
-        quant_zz, huff = self._tables(params)
+        quant_zz, huff = encode_tables(params.quality)
         if tr is not None:
             tr.close()
 
@@ -176,19 +164,19 @@ class Encoder:
         # exactly like the reference (gpujpeg_encoder.c:437-446)
         if self.backend == "torch" and params.restart_interval > 0:
             from ..ops.pipeline import encode_segments_device
-            result = encode_segments_device(self, raw, plan, quant_zz, huff,
-                                            tr)
+            scan_bodies, seg_sizes_by_scan, timed = encode_segments_device(
+                self._contexts, self.device, raw, plan, quant_zz, huff, tr)
+            vars(self.stats).update(timed)
         else:
             if isinstance(raw, torch.Tensor):   # checked, to the host once
                 raw = upload_raw(raw, image, "cpu").numpy()
-            seg_bytes = self._encode_segments_golden(raw, plan, quant_zz,
-                                                     huff)
-            result = self._to_scan_bodies(plan, seg_bytes)
-        scan_bodies, seg_sizes_by_scan = result
+            scan_bodies, seg_sizes_by_scan = join_segments(
+                plan, self._encode_segments_golden(raw, plan, quant_zz, huff))
 
         t0 = (tr.open("gpujpeg.enc.stream") if tr is not None
               else time.perf_counter_ns())
-        out = self._assemble(plan, quant_zz, huff, scan_bodies, seg_sizes_by_scan)
+        out = assemble(plan, quant_zz, huff, scan_bodies, seg_sizes_by_scan,
+                       self.header_type)
         t1 = tr.close() if tr is not None else time.perf_counter_ns()
         self.stats.duration_stream = (t1 - t0) * 1e-6
         return out
@@ -211,36 +199,14 @@ class Encoder:
         tr = Tracer(self.device, "gpujpeg.enc") if params.perf_stats else None
         try:
             plan = make_plan(params, image)
-            quant_zz, huff = self._tables(params)
-            return [self._assemble(plan, quant_zz, huff, *result)
-                    for result in encode_batch_device(self, raws, plan,
-                                                      quant_zz, huff)]
+            quant_zz, huff = encode_tables(params.quality)
+            return [assemble(plan, quant_zz, huff, *result, self.header_type)
+                    for result in encode_batch_device(
+                        self._contexts, self.device, raws, plan, quant_zz,
+                        huff)]
         finally:
             if tr is not None:
                 tr.finish()
-
-    _RST = tuple(bytes((0xFF, 0xD0 + i)) for i in range(8))
-
-    @staticmethod
-    def _to_scan_bodies(plan: CoderPlan, seg_bytes: list[bytes]):
-        """Join per-segment bytes into per-scan bodies with RST markers
-        (reference stream formatter: gpujpeg_encoder.c:479-537)."""
-        scan_bodies, seg_sizes_by_scan = [], []
-        seg = 0
-        for scan in plan.scans:
-            n = scan.segment_count
-            chunk = seg_bytes[seg:seg + n]
-            seg += n
-            sizes = np.fromiter(map(len, chunk), np.int64, n)
-            sizes[:-1] += 2
-            parts = []
-            for i, data in enumerate(chunk):
-                parts.append(data)
-                if i != n - 1:
-                    parts.append(Encoder._RST[i & 7])
-            scan_bodies.append(b"".join(parts))
-            seg_sizes_by_scan.append(sizes)
-        return scan_bodies, seg_sizes_by_scan
 
     # ------------------------------------------------------------------
     def _encode_segments_golden(self, raw, plan: CoderPlan, quant_zz, huff):
@@ -265,20 +231,3 @@ class Encoder:
         self.stats.duration_dct_quantization = (t2 - t1) * 1e3
         self.stats.duration_huffman_coder = (t3 - t2) * 1e3
         return seg_bytes
-
-    # ------------------------------------------------------------------
-    def _assemble(self, plan: CoderPlan, quant_zz, huff, scan_bodies,
-                  seg_sizes_by_scan) -> bytes:
-        """Final stream formatting (reference: gpujpeg_encoder.c:479-537).
-        Scan bodies arrive with RST markers already in place (inserted on
-        device, or by :meth:`_to_scan_bodies` on the golden path)."""
-        w = JpegWriter()
-        w.write_header(plan, quant_zz, huff, self.header_type)
-        for scan in plan.scans:
-            w.write_scan_header(plan, scan.index)
-            w.emit_bytes(scan_bodies[scan.index])
-            sizes = seg_sizes_by_scan[scan.index]
-            offsets = np.concatenate([[0], np.cumsum(sizes)])
-            w.patch_segment_info(offsets)
-        w.write_eoi()
-        return w.tobytes()

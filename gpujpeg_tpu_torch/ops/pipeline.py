@@ -3,7 +3,7 @@
 Counterpart of the JAX reference's ``gpujpeg_tpu/ops/jax_pipeline.py``.
 
 **Encode** (raw frame -> per-scan entropy bytes): a per-plan
-:class:`_EncContext` holds the plan's tables and geometry as tensors on
+:class:`EncContext` holds the plan's tables and geometry as tensors on
 the encoder's device; :func:`encode_segments_device` uploads the frame
 and takes one of two routes:
 
@@ -19,12 +19,13 @@ and takes one of two routes:
       E0 preprocess_planes (ops/preprocess.py) -> E1p fdct_quant_planes
       (ops/dct.py) -> E2 -> E3 -> compact_segments
 
-and splits the compacted bytes into scan bodies. E2 and E3 take any
-segment geometry, so they stand for the reference's K6 entropy half,
-K7 and the ``merge_and_stuff`` dispatch (K8-K11) on the second route.
+and splits the compacted bytes into scan bodies
+(:func:`stream.writer.scan_bodies`). E2 and E3 take any segment
+geometry, so they stand for the reference's K6 entropy half, K7 and the
+``merge_and_stuff`` dispatch (K8-K11) on the second route.
 
 **Decode** (entropy bytes -> raw frame; the reference's
-``_decode_device_v2``): a per-(plan, output, tables) :class:`_DecContext`
+``_decode_device_v2``): a per-(plan, output, tables) :class:`DecContext`
 holds the decode tables, IDCT operators and geometry on the decoder's
 device; :func:`decode_device` builds the destuffed segment rows on the
 host, uploads them and takes one of two routes after the Huffman decode:
@@ -48,6 +49,14 @@ decode at once (:func:`decode.lane_eligible`):
 
 On a CUDA device each stage is a hand-written kernel; on the CPU each
 runs its plain torch version.
+
+**The seam.** Every coder runs a frame's device steps through this
+module: ``Encoder`` and ``Decoder`` (``models/``), and the band coders
+of ``parallel/``, which run :class:`EncContext` and
+:func:`decode_launch` band by band. Nothing here knows a coder: each
+function takes what it uses (a context cache, a device, a tracer, a
+staging ring, a ``to_host`` flag) and returns what it measured, the
+stats by their names, which the coder writes into its own ``stats``.
 
 **Batches.** :func:`encode_batch_device` (``Encoder.encode_batch``)
 queues up to ``depth`` frames' uploads and kernels on the current
@@ -82,7 +91,7 @@ and :func:`decode_device` (the context, the upload or the rows' build
 and upload, the kernels' enqueue, the wait, the copy back) and marks the
 stage boundaries on the device: on the card a CUDA event recorded on the
 stream between two launches, read after the one sync at the end; on the
-CPU the host clock. The encode fills ``duration_memory_to`` (upload),
+CPU the host clock. The encode times ``duration_memory_to`` (upload),
 ``duration_preprocessor`` (E0; 0 on the E1 route, whose colour
 transform is inside E1), ``duration_dct_quantization`` (E1 or E1p),
 ``duration_huffman_coder`` (E2 + E3) and ``duration_memory_from``
@@ -123,11 +132,13 @@ from __future__ import annotations
 
 import collections
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..plan import CoderPlan
+from ..stream.writer import scan_bodies
 from ..tables import decode_device_tables, device_tables
 from ..trace import Tracer
 from .dct import fdct_quant, fdct_quant_planes, idct_planes, idct_rgb
@@ -217,7 +228,7 @@ class PinnedRing:
                 ev.synchronize()
 
 
-class _EncContext:
+class EncContext:
     """The plan's device operands: tables, DCT operator, per-component
     divisor rows, colour-transform constants, plane geometry and segment
     geometry."""
@@ -301,13 +312,22 @@ class _EncContext:
                            g.has_rst if has_rst is None else has_rst,
                            g.cap_out)
 
+    def compact(self, out: torch.Tensor, out_len_h: np.ndarray):
+        """E3's (S, cap_out) rows and their (S,) lengths in host memory ->
+        a band of :func:`stream.writer.scan_bodies`: (the segments' bytes
+        back to back in host memory, ``out_len_h``)."""
+        flat, _ = compact_segments(out, out_len_h, self.geo.cap_out)
+        return flat, out_len_h
 
-def _enc_context(cache: dict, plan: CoderPlan, quant_zz: dict, huff: dict,
-                 device: torch.device) -> _EncContext:
+
+def enc_context(cache: dict, plan: CoderPlan, quant_zz: dict, huff: dict,
+                device: torch.device) -> EncContext:
+    """The encode context of (plan, device) in ``cache``, built there on
+    its first use."""
     key = (plan.params, plan.image, str(device))
     ctx = cache.get(key)
     if ctx is None:
-        ctx = _EncContext(plan, quant_zz, huff, device)
+        ctx = EncContext(plan, quant_zz, huff, device)
         cache[key] = ctx
     return ctx
 
@@ -322,17 +342,26 @@ def upload_rgb(raw, plan: CoderPlan, device: torch.device,
     return upload_raw(raw, plan.image, device, staging).view(H, W, 3)
 
 
-def encode_segments_device(encoder, raw, plan: CoderPlan, quant_zz: dict,
-                           huff: dict, tr: Tracer | None = None):
-    """Run the device encoder; returns (scan_bodies, seg_sizes_by_scan):
-    per scan, the ready-to-emit entropy bytes (RST markers included) and
-    the per-segment byte sizes (for APP13 segment-info back-patching).
-    ``tr``, the call's tracer with perf stats on, gets the spans and
-    marks and the stats their stage durations."""
+#: the encode's stats that its tracer's marks time, in mark order
+ENC_MARKED = ("duration_memory_to", "duration_preprocessor",
+              "duration_dct_quantization", "duration_huffman_coder",
+              "duration_memory_from")
+
+
+def encode_segments_device(contexts: dict, device: torch.device, raw,
+                           plan: CoderPlan, quant_zz: dict, huff: dict,
+                           tr: Tracer | None = None):
+    """Run the device encode on ``device``, its context kept in
+    ``contexts``; returns (scan_bodies, seg_sizes_by_scan, timed): per
+    scan, the ready-to-emit entropy bytes (RST markers included) and the
+    per-segment byte sizes (for APP13 segment-info back-patching), and
+    the encoder stats it measured, by name: ``duration_in_gpu`` (upload,
+    kernels and the lengths' sync, ms) and, with ``tr`` (the call's
+    tracer with perf stats on, which gets the spans and marks), the
+    stage durations of :data:`ENC_MARKED`."""
     if tr is not None:
         tr.open("gpujpeg.enc.context")
-    ctx = _enc_context(encoder._contexts, plan, quant_zz, huff,
-                       encoder.device)
+    ctx = enc_context(contexts, plan, quant_zz, huff, device)
     if tr is not None:
         tr.close()
         t0 = tr.open("gpujpeg.enc.upload")
@@ -351,53 +380,35 @@ def encode_segments_device(encoder, raw, plan: CoderPlan, quant_zz: dict,
         tr.open("gpujpeg.enc.wait")
     out_len_h = out_len.cpu().numpy()
     t1 = tr.close() if tr is not None else time.perf_counter_ns()
-    encoder.stats.duration_in_gpu = (t1 - t0) * 1e-6
+    timed = {"duration_in_gpu": (t1 - t0) * 1e-6}
     if tr is not None:
         tr.open("gpujpeg.enc.memory_from")
-    result = _split_scan_bodies(plan, ctx, out, out_len_h)
+    bodies, sizes = scan_bodies(plan, [ctx.compact(out, out_len_h)])
     if tr is not None:
         tr.mark()
-        tr.close(sum(map(len, result[0])))
-        st = encoder.stats
-        (st.duration_memory_to, st.duration_preprocessor,
-         st.duration_dct_quantization, st.duration_huffman_coder,
-         st.duration_memory_from) = tr.durations()
-    return result
+        tr.close(sum(map(len, bodies)))
+        timed.update(zip(ENC_MARKED, tr.durations()))
+    return bodies, sizes, timed
 
 
-def _split_scan_bodies(plan: CoderPlan, ctx: _EncContext, out: torch.Tensor,
-                       out_len_h: np.ndarray):
-    flat, starts = compact_segments(out, out_len_h, ctx.geo.cap_out)
-    scan_bodies = []
-    seg_sizes_by_scan = []
-    seg = 0
-    for scan in plan.scans:
-        n = scan.segment_count
-        body = flat[starts[seg]:starts[seg + n]]
-        scan_bodies.append(body.tobytes())
-        seg_sizes_by_scan.append(out_len_h[seg:seg + n].astype(np.int64))
-        seg += n
-    return scan_bodies, seg_sizes_by_scan
-
-
-def encode_batch_device(encoder, raws, plan: CoderPlan, quant_zz: dict,
-                        huff: dict, depth: int = 3):
+def encode_batch_device(contexts: dict, device: torch.device, raws,
+                        plan: CoderPlan, quant_zz: dict, huff: dict,
+                        depth: int = 3):
     """Pipelined encode of same-geometry frames (the reference's
     ``jax_pipeline.encode_batch_device``): up to ``depth`` frames' uploads
     and kernels (one launch of each kernel a frame) are queued on the
     current stream before the oldest frame is brought back, so its copy
     back, compaction and the caller's stream assembly run under the later
-    frames' kernels. Yields one :func:`encode_segments_device`-shaped
-    result per frame, in order. On the card host frames go through a
-    :class:`PinnedRing` of ``depth + 1`` buffers, each frame's
-    ``out_len`` comes back into pinned memory behind an event, and the
-    compaction gather runs on a side stream that waits on that event
-    (``out`` is recorded on it), so it does not queue behind frames
+    frames' kernels. Yields one (scan_bodies, seg_sizes_by_scan) of
+    :func:`encode_segments_device` a frame, in order. On the card host
+    frames go through a :class:`PinnedRing` of ``depth + 1`` buffers, each
+    frame's ``out_len`` comes back into pinned memory behind an event,
+    and the compaction gather runs on a side stream that waits on that
+    event (``out`` is recorded on it), so it does not queue behind frames
     ``i+1 .. i+depth``. Stage statistics are not recorded."""
     if depth < 1:
         raise ValueError(f"depth must be at least 1, got {depth}")
-    ctx = _enc_context(encoder._contexts, plan, quant_zz, huff,
-                       encoder.device)
+    ctx = enc_context(contexts, plan, quant_zz, huff, device)
     cuda = ctx.device.type == "cuda"
     staging = PinnedRing(depth + 1) if cuda else None
     side = torch.cuda.Stream(ctx.device) if cuda else None
@@ -406,12 +417,12 @@ def encode_batch_device(encoder, raws, plan: CoderPlan, quant_zz: dict,
     def collect():
         out, out_len, ev = pending.popleft()
         if ev is None:
-            return _split_scan_bodies(plan, ctx, out, out_len.numpy())
+            return scan_bodies(plan, [ctx.compact(out, out_len.numpy())])
         ev.synchronize()
         with torch.cuda.stream(side):
             side.wait_event(ev)
             out.record_stream(side)
-            return _split_scan_bodies(plan, ctx, out, out_len.numpy())
+            return scan_bodies(plan, [ctx.compact(out, out_len.numpy())])
 
     try:
         for raw in raws:
@@ -448,7 +459,7 @@ DEC_CONTEXTS = 4
 PINNED_TAKEN = "allocated_bytes.allocated"
 
 
-class _DecContext:
+class DecContext:
     """The decode operands of one plan, output and table set: tables,
     IDCT operators and segment geometry (for a plan without restart
     markers, the lane route's segments and its last rows' lane
@@ -503,6 +514,16 @@ class _DecContext:
         self.geo = lane_geometry(self.lane_segs, words * 32)
         return rows
 
+    def upload(self, rows: np.ndarray,
+               staging: PinnedRing | None = None) -> torch.Tensor:
+        """:meth:`rows`' array -> the same (S, wcap) int32 rows on the
+        context's device: a pageable copy, or through ``staging`` (on the
+        card) without blocking the host."""
+        if staging is None:
+            return torch.from_numpy(rows).to(self.device)
+        return staging.upload(rows, self.device).view(torch.int32).view(
+            rows.shape)
+
     def coefficients(self, rows: torch.Tensor) -> torch.Tensor:
         """(S, wcap) int32 rows -> (NB, 64) int32 scan-order coefficients
         by D1, or on the lane route by D1L over the lane geometry of the
@@ -515,7 +536,7 @@ class _DecContext:
                                   t.delta, t.huffval, t.dc_slot, t.ac_slot)
         if self.geo is None:
             raise ValueError("the lane route decodes rows that "
-                             "_DecContext.rows built")
+                             "DecContext.rows built")
         out, self.rounds = huffman_lanes(rows, self.geo, self.n_blocks,
                                          t.wide, t.maxcode, t.delta,
                                          t.huffval, t.dc_slot, t.ac_slot)
@@ -570,9 +591,9 @@ class _DecContext:
         return raw
 
 
-def _dec_context(cache: dict, plan: CoderPlan, info, dc_by_comp, ac_by_comp,
-                 out_image, device: torch.device,
-                 limit: int = DEC_CONTEXTS) -> _DecContext:
+def dec_context(cache: dict, plan: CoderPlan, info, dc_by_comp, ac_by_comp,
+                out_image, device: torch.device,
+                limit: int = DEC_CONTEXTS) -> DecContext:
     """The cached decode context of (plan, output, tables, device); at
     most ``limit`` are kept, the oldest dropped first."""
     uniq, dc_slot, ac_slot = table_slots(plan, dc_by_comp, ac_by_comp)
@@ -584,7 +605,7 @@ def _dec_context(cache: dict, plan: CoderPlan, info, dc_by_comp, ac_by_comp,
            tabs.delta.tobytes(), tabs.huffval.tobytes())
     ctx = cache.get(key)
     if ctx is None:
-        ctx = _DecContext(plan, out_image, decode_device_tables(
+        ctx = DecContext(plan, out_image, decode_device_tables(
             tabs, wide_quick_tables(tabs), dc_slot, ac_slot, qts, q_of,
             device), device)
         while len(cache) >= limit:
@@ -593,15 +614,16 @@ def _dec_context(cache: dict, plan: CoderPlan, info, dc_by_comp, ac_by_comp,
     return ctx
 
 
-def decode_prep(decoder, plan: CoderPlan, info, scan_data,
-                segments_by_scan, dc_by_comp, ac_by_comp, out_image,
-                tr: Tracer | None = None):
-    """The host half of a device decode: (the decode context, the (S,
-    wcap) int32 segment rows); ``tr`` gets a span around each."""
+def decode_prep(contexts: dict, device: torch.device, plan: CoderPlan, info,
+                scan_data, segments_by_scan, dc_by_comp, ac_by_comp,
+                out_image, tr: Tracer | None = None):
+    """The host half of a device decode on ``device``, its context kept in
+    ``contexts``: (the decode context, the (S, wcap) int32 segment rows);
+    ``tr`` gets a span around each."""
     if tr is not None:
         tr.open("gpujpeg.dec.context")
-    ctx = _dec_context(decoder._contexts, plan, info, dc_by_comp, ac_by_comp,
-                       out_image, decoder.device)
+    ctx = dec_context(contexts, plan, info, dc_by_comp, ac_by_comp,
+                      out_image, device)
     if tr is not None:
         tr.close()
         tr.open("gpujpeg.dec.rows")
@@ -611,53 +633,49 @@ def decode_prep(decoder, plan: CoderPlan, info, scan_data,
     return ctx, rows
 
 
-def _dec_run(decoder, ctx: _DecContext, rows_dev: torch.Tensor,
-             clock: Tracer | None = None) -> torch.Tensor:
-    """The decode's kernels on rows already on the device; with
-    ``decoder.capture_device_call`` set, records ``(fn, args)`` on
-    ``decoder.last_device_call`` such that ``fn(*args)`` replays them and
-    returns the same flat raw frame."""
-    if decoder.capture_device_call:
-        decoder.last_device_call = (ctx.run, (rows_dev,))
-    return ctx.run(rows_dev, clock)
+#: the decoder's stats that its tracer's marks time, in mark order
+DEC_MARKED = ("duration_huffman_coder", "duration_dct_quantization",
+              "duration_postprocessor")
 
 
-def decode_device(decoder, plan: CoderPlan, info, scan_data,
-                  segments_by_scan, dc_by_comp, ac_by_comp,
-                  out_image, tr: Tracer | None = None) -> torch.Tensor:
-    """Run the device decode; returns the flat uint8 raw frame in the
-    output's pixel format on the decoder's device and fills the
-    decoder's upload and device stats. ``tr``, the call's tracer with
-    perf stats on, gets the spans and marks and the stats their stage
-    durations."""
-    ctx, rows = decode_prep(decoder, plan, info, scan_data, segments_by_scan,
-                            dc_by_comp, ac_by_comp, out_image, tr)
+def decode_device(contexts: dict, device: torch.device, plan: CoderPlan,
+                  info, scan_data, segments_by_scan, dc_by_comp, ac_by_comp,
+                  out_image, tr: Tracer | None = None):
+    """Run the device decode on ``device``, its context kept in
+    ``contexts``; returns (the flat uint8 raw frame in the output's pixel
+    format on ``device``, ``(fn, args)`` such that ``fn(*args)`` replays
+    the kernels on the rows already on the device and returns the same
+    frame, the decoder stats it measured by name: ``bytes_memory_to``,
+    ``duration_memory_to`` and ``duration_in_gpu`` and, with ``tr`` (the
+    call's tracer with perf stats on, which gets the spans and marks),
+    the stage durations of :data:`DEC_MARKED`)."""
+    ctx, rows = decode_prep(contexts, device, plan, info, scan_data,
+                            segments_by_scan, dc_by_comp, ac_by_comp,
+                            out_image, tr)
     t0 = (tr.open("gpujpeg.dec.memory_to") if tr is not None
           else time.perf_counter_ns())
-    rows_dev = torch.from_numpy(rows).to(ctx.device)
+    rows_dev = ctx.upload(rows)
     if tr is not None:
         t1 = tr.close(rows.nbytes)
         tr.open("gpujpeg.dec.launch")
         tr.mark()
     else:
         t1 = time.perf_counter_ns()
-    raw = _dec_run(decoder, ctx, rows_dev, tr)
+    raw = ctx.run(rows_dev, tr)
     if tr is not None:
         tr.close()
         tr.open("gpujpeg.dec.wait")
     if ctx.device.type == "cuda":
         torch.cuda.synchronize(ctx.device)
     t2 = tr.close() if tr is not None else time.perf_counter_ns()
-    st = decoder.stats
-    st.bytes_memory_to = int(rows.nbytes)
-    st.duration_memory_to = (t1 - t0) * 1e-6
-    st.duration_in_gpu = (t2 - t1) * 1e-6
+    timed = {"bytes_memory_to": int(rows.nbytes),
+             "duration_memory_to": (t1 - t0) * 1e-6,
+             "duration_in_gpu": (t2 - t1) * 1e-6}
     if tr is not None:
-        (st.duration_huffman_coder, st.duration_dct_quantization,
-         st.duration_postprocessor) = tr.durations()
+        timed.update(zip(DEC_MARKED, tr.durations()))
         if ctx.lanes:
             tr.count("gpujpeg.dec.rounds", ctx.lane_rounds())
-    return raw
+    return raw, (ctx.run, (rows_dev,)), timed
 
 
 def pinned_like(t: torch.Tensor, tr: Tracer | None = None) -> torch.Tensor:
@@ -699,34 +717,37 @@ def copy_back(raw: torch.Tensor, tr: Tracer | None = None) -> torch.Tensor:
     return host
 
 
-def decode_launch(decoder, ctx: _DecContext, rows: np.ndarray,
-                  staging: PinnedRing | None):
+class Launched(NamedTuple):
+    """A batch frame's decode in flight (:func:`decode_launch`)."""
+    raw: torch.Tensor             # the flat raw frame, once ``event`` is done
+    event: object                 # a CUDA event behind its work, or None
+    replay: tuple                 # (fn, args): ``fn(*args)`` reruns its kernels
+
+
+def decode_launch(ctx: DecContext, rows: np.ndarray,
+                  staging: PinnedRing | None, to_host: bool) -> Launched:
     """The device half of a batch decode, without a sync: the rows are
     uploaded (through ``staging`` on the card), the kernels launched and,
-    unless ``decoder.output_to_device``, the frame's copy back queued into
+    with ``to_host``, the frame's copy back queued into
     :func:`pinned_like`'s block, which is not reused while a caller holds
-    it. Returns what :func:`decode_collect` takes."""
-    if staging is None:
-        rows_dev = torch.from_numpy(rows).to(ctx.device)
-    else:
-        rows_dev = staging.upload(rows, ctx.device).view(
-            torch.int32).view(rows.shape)
-    raw = _dec_run(decoder, ctx, rows_dev)
+    it. :func:`decode_collect` takes the result."""
+    rows_dev = ctx.upload(rows, staging)
+    raw = ctx.run(rows_dev)
+    replay = (ctx.run, (rows_dev,))
     if ctx.device.type != "cuda":
-        return raw, None
-    if not decoder.output_to_device:
+        return Launched(raw, None, replay)
+    if to_host:
         host = pinned_like(raw)
         host.copy_(raw, non_blocking=True)
         raw = host
     ev = torch.cuda.Event()
     ev.record(torch.cuda.current_stream(ctx.device))
-    return raw, ev
+    return Launched(raw, ev, replay)
 
 
-def decode_collect(launched) -> torch.Tensor:
-    """:func:`decode_launch`'s result -> the flat raw frame (on the host,
-    or on the device with ``output_to_device``), once its work is done."""
-    raw, ev = launched
-    if ev is not None:
-        ev.synchronize()
-    return raw
+def decode_collect(launched: Launched) -> torch.Tensor:
+    """:func:`decode_launch`'s result -> the flat raw frame (in host
+    memory with ``to_host``, else on the device), once its work is done."""
+    if launched.event is not None:
+        launched.event.synchronize()
+    return launched.raw

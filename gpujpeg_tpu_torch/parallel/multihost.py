@@ -37,8 +37,8 @@ import torch
 import torch.distributed as dist
 
 from ..params import ImageParameters, Parameters
-from .sharded import (Mesh, ShardedDecoder, ShardedEncoder, local_cuda_mesh,
-                      split_raw_bands)
+from .sharded import (Mesh, ShardedDecoder, ShardedEncoder, compact_bands,
+                      local_cuda_mesh, split_raw_bands)
 
 
 def _world() -> tuple[int, int]:
@@ -164,13 +164,12 @@ class MultiHostSingleImageEncoder:
 
     def encode(self, raw, params: Parameters,
                image: ImageParameters) -> bytes:
-        b = self._inner._build(params, image)
+        b = self._inner.build(params, image)
         bands = split_raw_bands(raw, image, b.layout)
         first = self.rank * len(self.local_devices)
-        launched = [self._inner._launch_band(b, i, bands[i], device)
+        launched = [self._inner.launch_band(b, i, bands[i], device)
                     for i, device in enumerate(self.local_devices, first)]
-        mine = [self._inner._compact(args[0], out) for args, out in launched]
-        return self._inner._assemble(b, self._gather(mine))
+        return b.assemble(self._gather(compact_bands(launched)))
 
     def _gather(self, mine: list) -> list:
         """This process's bands' (bytes, lengths) -> every band's, in band

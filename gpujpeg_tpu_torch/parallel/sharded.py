@@ -35,8 +35,8 @@ The reference's TPU machinery has no counterpart here, and why:
 
 * ``shard_map``, ``jax.jit`` and the executable cache: each band calls
   the port's kernels eagerly on its device; what is cached is the
-  per-plan device context (``pipeline._enc_context`` and
-  ``_dec_context``, keyed by geometry and device), shared by every band
+  per-plan device context (``pipeline.enc_context`` and
+  ``dec_context``, keyed by geometry and device), shared by every band
   of one geometry on one device;
 * ``check_vma``: it exists only for ``pallas_call`` outputs inside
   ``shard_map``;
@@ -70,19 +70,18 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..models.decoder import Decoder, huffman_maps
+from ..models.decoder import Decoder, huffman_maps, plan_from_info
 from ..ops.decode import build_rows
-from ..ops.huffman_encode import compact_segments
-from ..ops.pipeline import (DEC_CONTEXTS, PinnedRing, _dec_context,
-                            _enc_context, decode_collect, decode_launch)
+from ..ops.pipeline import (DEC_CONTEXTS, PinnedRing, dec_context,
+                            decode_collect, decode_launch, enc_context)
 from ..params import ImageParameters, Parameters, suggest_restart_interval
 from ..plan import CoderPlan, make_plan
 from ..stream import reader as stream_reader
-from ..stream.writer import HeaderType, JpegWriter
-from ..tables import default_huffman_table, quant_table_zz
+from ..stream.writer import assemble, scan_bodies
+from ..tables import encode_tables
 from ..trace import Tracer
-from ..types import (PIXEL_FORMAT_DESC, ColorSpace, ComponentType,
-                     HuffmanType, PixelFormat, image_calculate_size)
+from ..types import (PIXEL_FORMAT_DESC, ColorSpace, PixelFormat,
+                     image_calculate_size)
 
 
 class Mesh:
@@ -334,9 +333,6 @@ class ShardedDecoder:
         self._contexts: dict = {}
         self._limit = DEC_CONTEXTS * len(_mesh_devices(self.mesh))
         self._single = Decoder(device=self.devices[0])
-        # read by pipeline.decode_launch: the bands come back to the host
-        self.output_to_device = False
-        self.capture_device_call = False
 
     # ------------------------------------------------------------------
     def decode(self, data: bytes) -> tuple[np.ndarray, ImageParameters]:
@@ -391,7 +387,7 @@ class ShardedDecoder:
         """Parse a stream and build its bands' contexts and rows, or None
         where it is routed to the single-device decoder."""
         info = stream_reader.read_image(data)
-        plan, scan_data, segments_by_scan = self._single._plan_from_info(info)
+        plan, scan_data, segments_by_scan = plan_from_info(info)
         n = self.n_seg
         if plan.params.restart_interval <= 0:
             return None
@@ -421,8 +417,8 @@ class ShardedDecoder:
                     else (0, 0)
                 data_b.append(np.asarray(sd)[lo:hi])
                 segs_b.append(part - lo)
-            ctx = _dec_context(self._contexts, layout.plan, info, dc_by_comp,
-                               ac_by_comp, band_out, device, self._limit)
+            ctx = dec_context(self._contexts, layout.plan, info, dc_by_comp,
+                              ac_by_comp, band_out, device, self._limit)
             bands.append((ctx, build_rows(layout.plan, data_b, segs_b)))
         return _BandJob(layout, out_image, bands)
 
@@ -432,7 +428,7 @@ class ShardedDecoder:
         launched = []
         for ctx, rows in job.bands:
             with on_device(ctx.device):
-                launched.append(decode_launch(self, ctx, rows, staging))
+                launched.append(decode_launch(ctx, rows, staging, True))
         return launched
 
     def _collect(self, job: _BandJob, launched: list):
@@ -456,6 +452,14 @@ class _ShardedBuild:
     rst_np: np.ndarray
     has_np: np.ndarray
     markers: dict = dataclasses.field(default_factory=dict)
+
+    def assemble(self, bands: list) -> bytes:
+        """The full frame's stream from every band's (bytes, lengths) in
+        band order: each scan's segments concatenated over the bands,
+        the full image's header, APP13 back-patched with the global
+        segment starts (reference: gpujpeg_encoder.c:479-537)."""
+        return assemble(self.full_plan, self.quant_zz, self.huff,
+                        *scan_bodies(self.layout.plan, bands))
 
     def band_markers(self, b: int, device: torch.device):
         """Band ``b``'s (rst, has_rst) int32 tensors on ``device``."""
@@ -486,23 +490,17 @@ class ShardedEncoder:
         self.last_device_call = None
 
     # ------------------------------------------------------------------
-    def _build(self, params: Parameters, image: ImageParameters):
+    def build(self, params: Parameters, image: ImageParameters):
+        """The sharded encode's state of (params, image), built on its
+        first use: the band layout, the full plan, the tables and each
+        band's global markers."""
         key = (params, image)
         hit = self._cache.get(key)
         if hit is None:
             layout = plan_bands(params, image, self.n_seg)
             rst_np, has_np = _global_rst_arrays(layout)
-            quant_zz = {
-                0: quant_table_zz(ComponentType.LUMINANCE, params.quality),
-                1: quant_table_zz(ComponentType.CHROMINANCE, params.quality),
-            }
-            huff = {
-                (ct, ht): default_huffman_table(ct, ht)
-                for ct in (ComponentType.LUMINANCE, ComponentType.CHROMINANCE)
-                for ht in (HuffmanType.DC, HuffmanType.AC)
-            }
-            hit = _ShardedBuild(layout, make_plan(params, image), quant_zz,
-                                huff, rst_np, has_np)
+            hit = _ShardedBuild(layout, make_plan(params, image),
+                                *encode_tables(params.quality), rst_np, has_np)
             self._cache[key] = hit
         return hit
 
@@ -525,66 +523,43 @@ class ShardedEncoder:
         tr = (Tracer(self.mesh.devices[0][0], "gpujpeg.enc")
               if params.perf_stats else None)
         try:
-            b = self._build(params, image)
+            b = self.build(params, image)
             launched = []
             for f, raw in enumerate(raws):
                 bands = split_raw_bands(raw, image, b.layout)
                 launched.append([
-                    self._launch_band(b, i, bands[i], device)
+                    self.launch_band(b, i, bands[i], device)
                     for i, device in enumerate(
                         self.mesh.devices[f % self.n_frame])])
             self.last_device_call = (_replay_bands, (
                 [args for frame in launched for args, _ in frame],))
-            return [self._assemble(b, [self._compact(args[0], out)
-                                       for args, out in frame])
-                    for frame in launched]
+            return [b.assemble(compact_bands(frame)) for frame in launched]
         finally:
             if tr is not None:
                 tr.finish()
 
-    def _launch_band(self, b: _ShardedBuild, i: int, band,
+    def launch_band(self, b: _ShardedBuild, i: int, band,
                      device: torch.device):
         """Upload band ``i`` to ``device`` and launch its route there with
         its global markers, on the device's current stream; returns
         ((context, uploaded band, rst, has_rst), E3's output)."""
-        ctx = _enc_context(self._contexts, b.layout.plan, b.quant_zz, b.huff,
-                           device)
+        ctx = enc_context(self._contexts, b.layout.plan, b.quant_zz, b.huff,
+                          device)
         rst, has = b.band_markers(i, device)
         with on_device(device):
             x = ctx.upload(band)
             return (ctx, x, rst, has), ctx.run(x, rst=rst, has_rst=has)
 
-    @staticmethod
-    def _compact(ctx, out) -> tuple[np.ndarray, np.ndarray]:
-        """A band's E3 output -> (its compacted bytes, per-segment byte
-        counts) on the host."""
-        with on_device(ctx.device):
-            out_len_h = out[1].cpu().numpy()
-            flat, _ = compact_segments(out[0], out_len_h, ctx.geo.cap_out)
-        return flat, out_len_h
 
-    def _assemble(self, b: _ShardedBuild, bands: list) -> bytes:
-        """Host-side stream formatting from every band's (bytes, lengths),
-        in band order: concatenate each scan's segments over the bands in
-        global scan order, write the full image's header and back-patch
-        APP13 with the global segment starts (reference:
-        gpujpeg_encoder.c:479-537)."""
-        plan = b.layout.plan
-        starts = [np.concatenate([[0], np.cumsum(lens, dtype=np.int64)])
-                  for _, lens in bands]
-        w = JpegWriter()
-        w.write_header(b.full_plan, b.quant_zz, b.huff, HeaderType.DEFAULT)
-        for scan in plan.scans:
-            ids = np.flatnonzero(plan.seg_scan == scan.index)
-            lo, hi = int(ids[0]), int(ids[-1]) + 1
-            w.write_scan_header(b.full_plan, scan.index)
-            w.emit_bytes(np.concatenate([
-                flat[st[lo]:st[hi]] for (flat, _), st in zip(bands, starts)]))
-            sizes = np.concatenate([lens[lo:hi] for _, lens in bands])
-            w.patch_segment_info(
-                np.concatenate([[0], np.cumsum(sizes, dtype=np.int64)]))
-        w.write_eoi()
-        return w.tobytes()
+def compact_bands(launched: list) -> list:
+    """:meth:`ShardedEncoder.launch_band`'s results -> each band's (its
+    segments' bytes, per-segment byte counts) in host memory, the bands
+    of :func:`stream.writer.scan_bodies`."""
+    bands = []
+    for (ctx, *_), (out, out_len, _, _) in launched:
+        with on_device(ctx.device):
+            bands.append(ctx.compact(out, out_len.cpu().numpy()))
+    return bands
 
 
 def _replay_bands(bands: list) -> list:

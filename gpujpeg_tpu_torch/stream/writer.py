@@ -324,3 +324,74 @@ class JpegWriter:
 
     def tobytes(self) -> bytes:
         return bytes(self.buf)
+
+
+#: the eight restart markers RST0-RST7, in cycle order
+RST_MARKERS = tuple(bytes((0xFF, 0xD0 + i)) for i in range(8))
+
+
+def join_segments(plan: CoderPlan, seg_bytes: list[bytes]):
+    """The host coder's per-segment bytes -> (per-scan bodies with RST
+    markers between segments, per-scan (n,) int64 segment sizes, each but
+    the scan's last counting its marker) (reference stream formatter:
+    gpujpeg_encoder.c:479-537)."""
+    bodies, sizes_by_scan = [], []
+    seg = 0
+    for scan in plan.scans:
+        n = scan.segment_count
+        chunk = seg_bytes[seg:seg + n]
+        seg += n
+        sizes = np.fromiter(map(len, chunk), np.int64, n)
+        sizes[:-1] += 2
+        parts = []
+        for i, data in enumerate(chunk):
+            parts.append(data)
+            if i != n - 1:
+                parts.append(RST_MARKERS[i & 7])
+        bodies.append(b"".join(parts))
+        sizes_by_scan.append(sizes)
+    return bodies, sizes_by_scan
+
+
+def scan_bodies(plan: CoderPlan, bands: list):
+    """Compacted bands -> (per-scan bodies, per-scan (n,) int64 segment
+    sizes). ``bands`` holds each band's (its segments' bytes back to back,
+    RST markers in place, as a uint8 array; (S,) per-segment byte counts)
+    in band order, each band coded on ``plan`` (the frame itself is the
+    one band); a scan's body is its segments of every band in turn, one
+    copy of its bytes."""
+    bodies, sizes_by_scan = [], []
+    pos = [0] * len(bands)
+    seg = 0
+    for scan in plan.scans:
+        n = scan.segment_count
+        sizes = np.concatenate([lens[seg:seg + n] for _, lens in bands],
+                               dtype=np.int64)
+        parts = []
+        for k, (flat, _) in enumerate(bands):
+            end = pos[k] + int(sizes[k * n:(k + 1) * n].sum())
+            parts.append(flat[pos[k]:end])
+            pos[k] = end
+        bodies.append(b"".join(parts))
+        sizes_by_scan.append(sizes)
+        seg += n
+    return bodies, sizes_by_scan
+
+
+def assemble(plan: CoderPlan, quant_zz: dict, huff: dict, bodies,
+             seg_sizes, header_type: HeaderType = HeaderType.DEFAULT
+             ) -> bytes:
+    """The JPEG stream of ``plan`` from its per-scan bodies, RST markers in
+    place, and per-scan segment sizes (:func:`scan_bodies`,
+    :func:`join_segments`): the header, each scan's header and body with
+    APP13 segment info back-patched, EOI (reference:
+    gpujpeg_encoder.c:479-537)."""
+    w = JpegWriter()
+    w.write_header(plan, quant_zz, huff, header_type)
+    for scan in plan.scans:
+        w.write_scan_header(plan, scan.index)
+        w.emit_bytes(bodies[scan.index])
+        sizes = seg_sizes[scan.index]
+        w.patch_segment_info(np.concatenate([[0], np.cumsum(sizes)]))
+    w.write_eoi()
+    return w.tobytes()

@@ -312,6 +312,22 @@ def default_huffman_table(comp_type: ComponentType, huff_type: HuffmanType) -> H
     return build_huffman_table(DEFAULT_HUFFMAN_BITS[key], DEFAULT_HUFFMAN_VALUES[key])
 
 
+def encode_tables(quality: int) -> tuple[dict, dict]:
+    """The encoder's tables at ``quality``: (table index -> zig-zag (64,)
+    quant table, luminance 0 and chrominance 1; (ComponentType,
+    HuffmanType) -> the Annex K Huffman table)."""
+    quant_zz = {
+        0: quant_table_zz(ComponentType.LUMINANCE, quality),
+        1: quant_table_zz(ComponentType.CHROMINANCE, quality),
+    }
+    huff = {
+        (ct, ht): default_huffman_table(ct, ht)
+        for ct in (ComponentType.LUMINANCE, ComponentType.CHROMINANCE)
+        for ht in (HuffmanType.DC, HuffmanType.AC)
+    }
+    return quant_zz, huff
+
+
 # ---------------------------------------------------------------------------
 # DCT matrices (built here so both the NumPy golden path and the JAX path
 # derive from one definition)
@@ -416,8 +432,8 @@ def device_tables(quant_zz: dict, huff: dict, device) -> DeviceTables:
 
     ``quant_zz`` maps a table index to its zig-zag (64,) table and
     ``huff`` maps (ComponentType, HuffmanType) to a table with
-    ``ehufco``/``ehufsi`` — the shape of ``Encoder._tables`` here and in
-    the JAX reference, whose integer enum keys compare equal to these."""
+    ``ehufco``/``ehufsi`` — the shape of :func:`encode_tables` and of the
+    JAX reference's ``Encoder._tables``, whose integer enum keys compare equal to these."""
     import torch
 
     from .ops.entropy import build_packed_tables

@@ -75,9 +75,10 @@ import torch
 from ..models.decoder import Decoder
 from ..models.encoder import Encoder
 from ..ops import dct, decode, entropy, preprocess
-from ..ops.pipeline import _enc_context
+from ..ops.pipeline import enc_context
 from ..params import ImageParameters, Parameters, suggest_restart_interval
 from ..plan import make_plan
+from ..tables import encode_tables
 from ..types import ColorSpace, PixelFormat
 from . import HEIGHT, WIDTH, bench_frame, card_line, device, mean_ms
 
@@ -160,7 +161,8 @@ def device_encode(enc: Encoder, img: np.ndarray, params, image,
     after a warm-up: (CUDA-event ms a run, None on the CPU; the launches of
     :data:`ENCODE_ROUTE`'s kernels; the route gate's failures)."""
     plan = make_plan(params, image)
-    ctx = _enc_context(enc._contexts, plan, *enc._tables(params), dev)
+    ctx = enc_context(enc._contexts, plan, *encode_tables(params.quality),
+                      dev)
     x = ctx.upload(img)
     ms, launches = counted(ENCODE_ROUTE,
                            lambda: card_ms(lambda: ctx.run(x), dev, runs))

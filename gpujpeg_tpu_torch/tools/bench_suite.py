@@ -45,8 +45,9 @@ import torch
 
 from ..models.decoder import Decoder
 from ..models.encoder import Encoder
-from ..ops.pipeline import _enc_context
+from ..ops.pipeline import enc_context
 from ..plan import make_plan
+from ..tables import encode_tables
 from . import bench, bench_frame, card_line, device
 from .bench import ENCODE_ROUTE, config, counted, host_ms, log, route_failures
 
@@ -154,7 +155,8 @@ def bench_video(iters: int = 100, device_name: str = "cuda",
     frames = [bench_frame(H, W, seed=s) for s in range(4)]
     enc.encode(frames[0], params, image)
     plan = make_plan(params, image)
-    ctx = _enc_context(enc._contexts, plan, *enc._tables(params), dev)
+    ctx = enc_context(enc._contexts, plan, *encode_tables(params.quality),
+                      dev)
     devs = [ctx.upload(f) for f in frames]
 
     def runs():

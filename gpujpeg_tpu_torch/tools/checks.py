@@ -106,12 +106,11 @@ def differing_segments(plan, data_a: bytes, data_b: bytes,
 def context(params, image, device="cuda"):
     """The device encode's context of ``params`` and ``image`` on
     ``device``, with the golden coder's tables."""
-    from ..models.encoder import Encoder
-    from ..ops.pipeline import _EncContext
+    from ..ops.pipeline import EncContext
     from ..plan import make_plan
-    quant_zz, huff = Encoder(backend="golden")._tables(params)
-    return _EncContext(make_plan(params, image), quant_zz, huff,
-                       torch.device(device))
+    from ..tables import encode_tables
+    return EncContext(make_plan(params, image),
+                      *encode_tables(params.quality), torch.device(device))
 
 
 def card_vs_cpu(raw, params, image, a: bytes, b: bytes,
@@ -121,9 +120,9 @@ def card_vs_cpu(raw, params, image, a: bytes, b: bytes,
     only at .5 ties (both float32: within ``F32_EVALS * eps``) and the
     streams only in segments that hold one, naming the first segments
     that differ otherwise. Returns a summary."""
-    from ..models.encoder import Encoder
+    from ..tables import encode_tables
     ca, cb = context(params, image, device), context(params, image, "cpu")
-    quant_zz, _ = Encoder(backend="golden")._tables(params)
+    quant_zz, _ = encode_tables(params.quality)
     y64, eps = golden_quotients(raw, image, ca.plan, quant_zz)
     what = f"{image.width}x{image.height} {device} vs CPU"
     n_ties, tie_segs = tie_segments(
@@ -141,13 +140,13 @@ def card_vs_cpu(raw, params, image, a: bytes, b: bytes,
 def decode_parts(data: bytes, out_image, device):
     """(info, plan, golden decode inputs, decode context, rows on
     ``device``) of a stream decoded to ``out_image``."""
-    from ..models.decoder import Decoder, huffman_maps
-    from ..ops.pipeline import _dec_context
+    from ..models.decoder import huffman_maps, plan_from_info
+    from ..ops.pipeline import dec_context
     from ..stream.reader import read_image
     info = read_image(data)
-    plan, scan_data, segs = Decoder(backend="golden")._plan_from_info(info)
+    plan, scan_data, segs = plan_from_info(info)
     dc, ac = huffman_maps(info)
-    ctx = _dec_context({}, plan, info, dc, ac, out_image, torch.device(device))
+    ctx = dec_context({}, plan, info, dc, ac, out_image, torch.device(device))
     rows = torch.from_numpy(ctx.rows(scan_data, segs)).to(device)
     return info, plan, (plan, scan_data, segs, dc, ac), ctx, rows
 

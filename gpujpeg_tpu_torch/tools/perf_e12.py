@@ -44,13 +44,13 @@ import numpy as np
 import torch
 
 from .. import _build
-from ..models.encoder import Encoder
 from ..ops import dct, entropy
-from ..ops.pipeline import _EncContext
+from ..ops.pipeline import EncContext
 from ..ops.preprocess import preprocess_planes, upload_raw
 from ..params import ImageParameters, Parameters
 from ..plan import make_plan
 from ..runtime import kernel_build_dir, verify_private_dir
+from ..tables import encode_tables
 from ..types import ColorSpace, PixelFormat
 from . import (ablate_stage1, bench_frame, device, mean_ms, parse_args,
                perf_stage1, report)
@@ -138,8 +138,7 @@ def main_path(height: int, width: int, dev):
                             pixel_format=PixelFormat.PF_444_U8_P012)
     params = Parameters(quality=QUALITY, restart_interval=RESTART_INTERVAL)
     plan = make_plan(params, image)
-    quant_zz, huff = Encoder(backend="golden")._tables(params)
-    ctx = _EncContext(plan, quant_zz, huff, dev)
+    ctx = EncContext(plan, *encode_tables(params.quality), dev)
     t, g, geo = ctx.tables, ctx.planes, ctx.geo
     planes = preprocess_planes(upload_raw(
         bench_frame(height, width).reshape(-1), image, dev), g)

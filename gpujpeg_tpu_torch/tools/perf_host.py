@@ -6,9 +6,9 @@ the JAX package's ``scripts/perf_host.py``.
 The parts of the single-call walls that do not run on the card, for the
 bench frame (``tools.bench_frame``) at Q75, restart interval 32,
 non-interleaved, with APP13 segment info and without: the encode's
-stream assembly (``Encoder._to_scan_bodies`` and ``Encoder._assemble``),
+stream assembly (``stream.writer.join_segments`` and ``assemble``),
 the decode's parse (``stream.reader.read_image``), plan
-(``Decoder._plan_from_info``) and row build (``ops/decode.build_rows``:
+(``models.decoder.plan_from_info``) and row build (``ops/decode.build_rows``:
 ``segment_ranges_wcap``, then the native ``gj_build_rows`` through
 ``build_segment_rows_from_ranges``, which is where the JAX script's
 transposed native build and its NumPy fallback went), and the row
@@ -23,13 +23,15 @@ import time
 
 import numpy as np
 
-from ..models.decoder import Decoder
+from ..models.decoder import plan_from_info
 from ..models.encoder import Encoder
 from ..ops.decode import (
     build_rows, build_segment_rows_from_ranges, segment_ranges_wcap)
 from ..params import ImageParameters, Parameters
 from ..plan import make_plan
 from ..stream.reader import read_image
+from ..stream.writer import assemble, join_segments
+from ..tables import encode_tables
 from ..types import ColorSpace, PixelFormat
 from . import HEIGHT, WIDTH, bench_frame
 
@@ -59,7 +61,6 @@ def run(H: int = HEIGHT, W: int = WIDTH) -> list[dict]:
                             pixel_format=PixelFormat.PF_444_U8_P012)
     img = bench_frame(H, W)
     enc = Encoder(backend="golden")
-    dec = Decoder(backend="golden")
     out = []
     for seginfo in (True, False):
         rows = []
@@ -74,19 +75,19 @@ def run(H: int = HEIGHT, W: int = WIDTH) -> list[dict]:
               f"{(time.perf_counter() - t0) * 1e3:10.0f} ms   "
               f"{len(data) / 1e6:.1f} MB stream", flush=True)
 
-        quant_zz, huff = enc._tables(params)
+        quant_zz, huff = encode_tables(params.quality)
         seg_bytes = enc._encode_segments_golden(img.reshape(-1), plan,
                                                 quant_zz, huff)
         bodies = timed(rows, "encode: scan bodies from segment bytes",
-                       lambda: enc._to_scan_bodies(plan, seg_bytes))
-        timed(rows, "encode: _assemble (writer + seginfo patch)",
-              lambda: enc._assemble(plan, quant_zz, huff, *bodies))
+                       lambda: join_segments(plan, seg_bytes))
+        timed(rows, "encode: assemble (writer + seginfo patch)",
+              lambda: assemble(plan, quant_zz, huff, *bodies))
 
         info = timed(rows, "decode: read_image (marker parse + scan split)",
                      lambda: read_image(data))
         dplan, scan_data, segs = timed(
             rows, "decode: plan + scan tables from info",
-            lambda: dec._plan_from_info(info))
+            lambda: plan_from_info(info))
         concat, lo, hi, wcap = timed(
             rows, "decode: segment ranges + concat",
             lambda: segment_ranges_wcap(scan_data, segs, dplan))

@@ -33,12 +33,12 @@ import numpy as np
 import torch
 
 from .. import _build
-from ..models.encoder import Encoder
 from ..ops import entropy
 from ..ops.huffman_encode import build_enc_geometry, cap_for_quality
 from ..params import ImageParameters, Parameters
 from ..plan import CoderPlan, make_plan
-from ..tables import DeviceTables, dct_zigzag_operator, device_tables
+from ..tables import (DeviceTables, dct_zigzag_operator, device_tables,
+                      encode_tables)
 from ..types import ColorSpace, PixelFormat
 from . import HEIGHT, WIDTH, device, mean_ms, parse_args, report
 
@@ -183,7 +183,7 @@ def stage1_plan(height: int, width: int, quality: int = QUALITY,
                             color_space=ColorSpace.RGB,
                             pixel_format=PixelFormat.PF_444_U8_P012)
     plan = make_plan(params, image)
-    quant_zz, huff = Encoder(backend="golden")._tables(params)
+    quant_zz, huff = encode_tables(params.quality)
     probe = build_uniform_geometry(plan)
     budget = seg_budget_for_quality(quality, probe.bps)
     geo = build_uniform_geometry(

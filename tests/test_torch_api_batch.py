@@ -19,6 +19,8 @@ import gpujpeg_tpu_torch as port
 import gpujpeg_tpu_torch.models.decoder as dmod
 from gpujpeg_tpu_torch.ops import pipeline
 from gpujpeg_tpu_torch.plan import make_plan
+from gpujpeg_tpu_torch.stream.writer import assemble
+from gpujpeg_tpu_torch.tables import encode_tables
 
 
 def _image(mod, h, w, pf="PF_444_U8_P012", cs="RGB"):
@@ -103,14 +105,14 @@ def test_encode_batch_takes_tensors_and_counts_frames():
     assert enc.encode_batch(tensors, pp, pi) == want
     assert enc.encode_batch([], pp, pi) == []
     plan = make_plan(pp, pi)
-    quant_zz, huff = enc._tables(pp)
+    quant_zz, huff = encode_tables(pp.quality)
     for depth in (1, 2, 5):
-        res = list(pipeline.encode_batch_device(enc, frames, plan, quant_zz,
-                                                huff, depth))
-        assert [enc._assemble(plan, quant_zz, huff, *r) for r in res] == want
+        res = list(pipeline.encode_batch_device(
+            enc._contexts, enc.device, frames, plan, quant_zz, huff, depth))
+        assert [assemble(plan, quant_zz, huff, *r) for r in res] == want
     with pytest.raises(ValueError, match="depth"):
-        list(pipeline.encode_batch_device(enc, frames, plan, quant_zz, huff,
-                                          0))
+        list(pipeline.encode_batch_device(enc._contexts, enc.device, frames,
+                                          plan, quant_zz, huff, 0))
 
 
 # ---------------------------------------------------------------------------

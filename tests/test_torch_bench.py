@@ -17,7 +17,7 @@ import gpujpeg_tpu as ref
 import gpujpeg_tpu_torch as port
 from gpujpeg_tpu.ops import jax_pipeline as ref_jp
 from gpujpeg_tpu.plan import make_plan as ref_make_plan
-from gpujpeg_tpu_torch.models.decoder import Decoder
+from gpujpeg_tpu_torch.models.decoder import plan_from_info
 from gpujpeg_tpu_torch.models.encoder import Encoder
 from gpujpeg_tpu_torch.ops import pipeline
 from gpujpeg_tpu_torch.ops.decode import build_rows
@@ -265,7 +265,7 @@ def test_perf_host_stages(capsys):
         mine = [r for r in rows if r["segment_info"] is seginfo]
         assert [r["stage"] for r in mine] == [
             "encode: scan bodies from segment bytes",
-            "encode: _assemble (writer + seginfo patch)",
+            "encode: assemble (writer + seginfo patch)",
             "decode: read_image (marker parse + scan split)",
             "decode: plan + scan tables from info",
             "decode: segment ranges + concat",
@@ -279,8 +279,7 @@ def test_perf_host_stages(capsys):
                                  segment_info=seginfo)
         data = Encoder(backend="golden").encode(bench_frame(64, 96), params,
                                                 image)
-        plan, scan_data, segs = Decoder(
-            backend="golden")._plan_from_info(read_image(data))
+        plan, scan_data, segs = plan_from_info(read_image(data))
         assert mine[-1]["bytes"] == build_rows(plan, scan_data, segs).nbytes
     assert out.count("row payload: S=9 wcap=") == 2
     with pytest.raises(SystemExit):

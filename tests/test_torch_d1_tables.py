@@ -193,7 +193,7 @@ def test_d1_rejects_segments_that_do_not_cover_the_blocks():
     raises otherwise, and the decode context checks its plan's map on the
     host before it uploads it."""
     from types import SimpleNamespace
-    from gpujpeg_tpu_torch.ops.pipeline import _DecContext
+    from gpujpeg_tpu_torch.ops.pipeline import DecContext
     _, start, count, comp, _, _, _ = decode.envelope_rows(
         np.random.default_rng(3), n_seg=16)
     decode.check_cover(start, count, comp.size)
@@ -211,4 +211,4 @@ def test_d1_rejects_segments_that_do_not_cover_the_blocks():
         plan = SimpleNamespace(seg_block_start=s, seg_block_count=c,
                                block_comp=comp)
         with pytest.raises(ValueError, match="cover"):
-            _DecContext(plan, None, None, torch.device("cpu"))
+            DecContext(plan, None, None, torch.device("cpu"))

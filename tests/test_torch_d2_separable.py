@@ -127,8 +127,8 @@ def test_separable_order_within_the_f32_bound(q, ct):
 
 def _context(q: int):
     import gpujpeg_tpu_torch as port
-    from gpujpeg_tpu_torch.models.decoder import huffman_maps
-    from gpujpeg_tpu_torch.ops.pipeline import _dec_context
+    from gpujpeg_tpu_torch.models.decoder import huffman_maps, plan_from_info
+    from gpujpeg_tpu_torch.ops.pipeline import dec_context
     from gpujpeg_tpu_torch.stream.reader import read_image
     image = port.ImageParameters(width=16, height=16,
                                  color_space=port.ColorSpace.RGB,
@@ -139,9 +139,9 @@ def _context(q: int):
         img.reshape(-1), port.Parameters(quality=q, restart_interval=1),
         image)
     info = read_image(data)
-    plan, _, _ = port.Decoder(backend="golden")._plan_from_info(info)
-    return _dec_context({}, plan, info, *huffman_maps(info), image,
-                        torch.device("cpu"))
+    plan, _, _ = plan_from_info(info)
+    return dec_context({}, plan, info, *huffman_maps(info), image,
+                       torch.device("cpu"))
 
 
 @pytest.mark.parametrize("q", (75, 100))
@@ -202,9 +202,9 @@ def _plan_parts(name, w, h, interleaved=None, q=85):
     coefficients) of the golden encoder's stream of one PLANS entry."""
     import gpujpeg_tpu_torch as port
     from conftest import make_test_rgb
-    from gpujpeg_tpu_torch.models.decoder import huffman_maps
+    from gpujpeg_tpu_torch.models.decoder import huffman_maps, plan_from_info
     from gpujpeg_tpu_torch.ops.decode import build_rows
-    from gpujpeg_tpu_torch.ops.pipeline import _dec_context
+    from gpujpeg_tpu_torch.ops.pipeline import dec_context
     from gpujpeg_tpu_torch.stream.reader import read_image
     pf, sub, inter = PLANS[name]
     inter = inter if interleaved is None else interleaved
@@ -216,10 +216,9 @@ def _plan_parts(name, w, h, interleaved=None, q=85):
         port.ImageParameters(width=w, height=h,
                              pixel_format=port.PixelFormat[pf]))
     info = read_image(data)
-    plan, scan_data, segs = port.Decoder(backend="golden")._plan_from_info(
-        info)
-    ctx = _dec_context({}, plan, info, *huffman_maps(info), _rgb_out(plan),
-                       torch.device("cpu"))
+    plan, scan_data, segs = plan_from_info(info)
+    ctx = dec_context({}, plan, info, *huffman_maps(info), _rgb_out(plan),
+                      torch.device("cpu"))
     coeff = ctx.coefficients(torch.from_numpy(build_rows(plan, scan_data,
                                                          segs)))
     return info, plan, ctx, coeff

@@ -17,7 +17,7 @@ import gpujpeg_tpu_torch.models.decoder as dmod
 from gpujpeg_tpu.ops import golden as ref_golden
 from gpujpeg_tpu.ops import jax_pipeline as ref_jp
 from gpujpeg_tpu.stream.reader import read_image as ref_read_image
-from gpujpeg_tpu_torch.models.decoder import huffman_maps
+from gpujpeg_tpu_torch.models.decoder import huffman_maps, plan_from_info
 from gpujpeg_tpu_torch.ops import decode, dct, pipeline, preprocess as pre
 from gpujpeg_tpu_torch.stream.reader import read_image
 from gpujpeg_tpu_torch.tables import idct_dequant_matrix
@@ -54,13 +54,12 @@ def _stream(h, w, q, ri, interleaved=False, sub=None):
 def _port_parts(data):
     """The port's decode operands of a stream on the CPU."""
     info = read_image(data)
-    dec = port.Decoder(backend="torch", device="cpu")
-    plan, scan_data, segs = dec._plan_from_info(info)
+    plan, scan_data, segs = plan_from_info(info)
     dc, ac = huffman_maps(info)
     out_image = port.ImageParameters(
         width=info.width, height=info.height, color_space=port.ColorSpace.RGB,
         pixel_format=port.PixelFormat.PF_444_U8_P012)
-    ctx = pipeline._dec_context({}, plan, info, dc, ac, out_image, CPU)
+    ctx = pipeline.dec_context({}, plan, info, dc, ac, out_image, CPU)
     rows = torch.from_numpy(decode.build_rows(plan, scan_data, segs))
     return info, plan, ctx, rows
 

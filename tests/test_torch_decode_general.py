@@ -20,7 +20,7 @@ from gpujpeg_tpu.ops import jax_pipeline as ref_jp
 from gpujpeg_tpu.ops import pallas_decode as ref_pd
 from gpujpeg_tpu.ops import pallas_decode_v3 as ref_v3
 from gpujpeg_tpu.stream.reader import read_image as ref_read_image
-from gpujpeg_tpu_torch.models.decoder import huffman_maps
+from gpujpeg_tpu_torch.models.decoder import huffman_maps, plan_from_info
 from gpujpeg_tpu_torch.ops import dct, pipeline, preprocess as pre
 from gpujpeg_tpu_torch.stream.reader import read_image
 from test_torch_decode import _assert_plane_ties, _golden_planes
@@ -71,10 +71,9 @@ def _port_parts(data, out_image=None):
     """(info, plan, decode context, rows) of the port's decode of a
     stream on the CPU."""
     info = read_image(data)
-    plan, scan_data, segs = port.Decoder(
-        backend="torch", device="cpu")._plan_from_info(info)
-    ctx = pipeline._dec_context({}, plan, info, *huffman_maps(info),
-                                out_image or _out(info), CPU)
+    plan, scan_data, segs = plan_from_info(info)
+    ctx = pipeline.dec_context({}, plan, info, *huffman_maps(info),
+                               out_image or _out(info), CPU)
     rows = torch.from_numpy(ctx.rows(scan_data, segs))
     return info, plan, ctx, rows
 

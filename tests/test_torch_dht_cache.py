@@ -18,6 +18,7 @@ from conftest import make_test_rgb
 import gpujpeg_tpu as ref
 import gpujpeg_tpu_torch as port
 import gpujpeg_tpu_torch.models.decoder as dmod
+import gpujpeg_tpu_torch.models.encoder as encoder_mod
 from gpujpeg_tpu.tables import build_huffman_table as ref_build
 from gpujpeg_tpu_torch import tables
 from gpujpeg_tpu_torch.ops.entropy import envelope_huffman_spec
@@ -42,16 +43,17 @@ def empty_cache():
 def _stream(huff_spec=None, sub: int = 420) -> bytes:
     """A golden-coded stream, with the Annex K tables or ``huff_spec``'s
     (bits, values) per (component type, Huffman type)."""
-    enc = port.Encoder(backend="golden")
-    if huff_spec is not None:
-        base = enc._tables
-        enc._tables = lambda params: (base(params)[0], {
-            key: tables.build_huffman_table(*bv)
-            for key, bv in huff_spec.items()})
     params = port.Parameters(quality=75, restart_interval=2)
     params = params.with_chroma_subsampling(sub) if sub != 444 else params
-    return enc.encode(make_test_rgb(H, W).reshape(-1), params,
-                      port.ImageParameters(width=W, height=H))
+    with pytest.MonkeyPatch.context() as mp:
+        if huff_spec is not None:
+            mp.setattr(encoder_mod, "encode_tables", lambda q: (
+                tables.encode_tables(q)[0], {
+                    key: tables.build_huffman_table(*bv)
+                    for key, bv in huff_spec.items()}))
+        return port.Encoder(backend="golden").encode(
+            make_test_rgb(H, W).reshape(-1), params,
+            port.ImageParameters(width=W, height=H))
 
 
 def _dht(tc_th: int, bits, values) -> bytes:

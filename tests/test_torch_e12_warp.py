@@ -45,7 +45,7 @@ from gpujpeg_tpu_torch.ops.preprocess import (
     plane_geometry, preprocess_planes, upload_raw)
 from gpujpeg_tpu_torch.plan import make_plan
 from gpujpeg_tpu_torch.tables import (
-    build_huffman_table, dct_zigzag_operator, device_tables)
+    build_huffman_table, dct_zigzag_operator, device_tables, encode_tables)
 from gpujpeg_tpu_torch import _build
 from gpujpeg_tpu_torch.tools import perf_e12, perf_stage1
 
@@ -153,7 +153,7 @@ def test_e12_order_equals_e1p_then_e2(sub, interleaved):
                              interleaved=interleaved
                              ).with_chroma_subsampling(sub)
     plan = make_plan(params, image)
-    quant_zz, huff = port.Encoder(backend="golden")._tables(params)
+    quant_zz, huff = encode_tables(params.quality)
     t = device_tables(quant_zz, huff, "cpu")
     g = plane_geometry(plan, "cpu")
     rng = np.random.default_rng(4)

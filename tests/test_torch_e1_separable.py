@@ -130,13 +130,14 @@ def test_fdct_quant_on_the_cpu_is_plain_and_checks_operands():
     """On the CPU the wrapper runs the plain version; a wrong operand or
     a device other than the CPU's and CUDA's raises."""
     import gpujpeg_tpu_torch as port
-    from gpujpeg_tpu_torch.ops.pipeline import _EncContext, upload_rgb
+    from gpujpeg_tpu_torch.ops.pipeline import EncContext, upload_rgb
+    from gpujpeg_tpu_torch.tables import encode_tables
     from gpujpeg_tpu_torch.plan import make_plan
     params = port.Parameters(quality=75, restart_interval=2)
     image = port.ImageParameters(width=16, height=16)
     plan = make_plan(params, image)
-    quant_zz, huff = port.Encoder(backend="golden")._tables(params)
-    ctx = _EncContext(plan, quant_zz, huff, torch.device("cpu"))
+    ctx = EncContext(plan, *encode_tables(params.quality),
+                     torch.device("cpu"))
     t = ctx.tables
     rgb = upload_rgb(np.random.default_rng(1).integers(
         0, 256, (16, 16, 3), dtype=np.uint8), plan, torch.device("cpu"))
@@ -170,7 +171,8 @@ def _plan_parts(name, w, h, interleaved=None, q=75, ri=1):
     PLANS entry at ``w`` x ``h``."""
     from test_torch_encode_general import both, make_raw
     import gpujpeg_tpu_torch as port
-    from gpujpeg_tpu_torch.ops.pipeline import _EncContext
+    from gpujpeg_tpu_torch.ops.pipeline import EncContext
+    from gpujpeg_tpu_torch.tables import encode_tables
     from gpujpeg_tpu_torch.ops.preprocess import (
         preprocess_planes_plain, upload_raw)
     from gpujpeg_tpu_torch.plan import make_plan
@@ -178,9 +180,8 @@ def _plan_parts(name, w, h, interleaved=None, q=75, ri=1):
     inter = inter if interleaved is None else interleaved
     raw = make_raw(pf, cs, w, h, seed=w + h)
     params, image = both(port, pf, cs, w, h, q, ri, sub, inter)
-    ctx = _EncContext(make_plan(params, image),
-                      *port.Encoder(backend="golden")._tables(params),
-                      torch.device("cpu"))
+    ctx = EncContext(make_plan(params, image),
+                     *encode_tables(params.quality), torch.device("cpu"))
     planes = preprocess_planes_plain(upload_raw(raw, image, "cpu"),
                                      ctx.planes)
     return raw, ctx, planes

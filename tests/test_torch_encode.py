@@ -16,8 +16,9 @@ from gpujpeg_tpu.ops import jax_pipeline as ref_jp
 from gpujpeg_tpu.plan import make_plan as ref_make_plan
 from gpujpeg_tpu.types import HuffmanType
 from gpujpeg_tpu_torch.ops import dct, entropy
-from gpujpeg_tpu_torch.ops.pipeline import _EncContext, upload_rgb
+from gpujpeg_tpu_torch.ops.pipeline import EncContext, upload_rgb
 from gpujpeg_tpu_torch.plan import make_plan
+from gpujpeg_tpu_torch.tables import encode_tables
 
 CPU = torch.device("cpu")
 #: a float32 quotient may round the other way than the reference's only
@@ -39,8 +40,7 @@ def _port_ctx(img, q, ri, interleaved=False, cs=None):
     h, w, _ = img.shape
     params, image = _setup(port, w, h, q, ri, interleaved, cs)
     plan = make_plan(params, image)
-    quant_zz, huff = port.Encoder(backend="golden")._tables(params)
-    ctx = _EncContext(plan, quant_zz, huff, CPU)
+    ctx = EncContext(plan, *encode_tables(params.quality), CPU)
     return ctx, upload_rgb(img, plan, CPU)
 
 
@@ -228,9 +228,9 @@ def test_geometry_outside_the_slice_raises():
     assert got == ref.Encoder(backend="jax").encode(
         img.reshape(-1), rparams.with_chroma_subsampling(420), rimage)
     params0, _ = _setup(port, 80, 64, 75, 0)
-    quant_zz, huff = port.Encoder(backend="golden")._tables(params0)
     with pytest.raises(ValueError, match="restart"):
-        _EncContext(make_plan(params0, image), quant_zz, huff, CPU)
+        EncContext(make_plan(params0, image),
+                   *encode_tables(params0.quality), CPU)
 
 
 def test_wrappers_take_plain_versions_only_on_cpu():
@@ -247,7 +247,7 @@ def test_wrappers_take_plain_versions_only_on_cpu():
     from gpujpeg_tpu_torch.ops import decode
     from gpujpeg_tpu_torch.tables import decode_device_tables
     tabs = decode.build_dec_tables_v2(
-        [port.Encoder(backend="golden")._tables(port.Parameters())[1][k]
+        [encode_tables(port.Parameters().quality)[1][k]
          for k in sorted(ctx.tables.huff)])
     slots = np.array([0, 2, 2, 0], np.int32)     # luma, chroma, chroma
     dt = decode_device_tables(tabs, decode.wide_quick_tables(tabs), slots,

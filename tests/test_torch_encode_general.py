@@ -18,9 +18,10 @@ from gpujpeg_tpu.ops.colorspace import transform as ref_transform
 from gpujpeg_tpu.ops.preprocess import pack_raw as ref_pack_raw
 from gpujpeg_tpu.plan import make_plan as ref_make_plan
 from gpujpeg_tpu_torch.ops import dct
-from gpujpeg_tpu_torch.ops.pipeline import _EncContext
+from gpujpeg_tpu_torch.ops.pipeline import EncContext
 from gpujpeg_tpu_torch.ops.preprocess import upload_raw
 from gpujpeg_tpu_torch.plan import make_plan
+from gpujpeg_tpu_torch.tables import encode_tables
 
 PF, CS = port.PixelFormat, port.ColorSpace
 CPU = torch.device("cpu")
@@ -79,7 +80,7 @@ def test_plain_e1p_matches_staged_xla_dct(pf, cs, cs_int, w, h, q, ri, sub,
     raw = make_raw(pf, cs, w, h)
     params, image = both(port, pf, cs, w, h, q, ri, sub, interleaved, cs_int)
     plan = make_plan(params, image)
-    ctx = _EncContext(plan, *port.Encoder(backend="golden")._tables(params),
+    ctx = EncContext(plan, *encode_tables(params.quality),
                       CPU)
     coeff = ctx.coefficients_planes(upload_raw(raw, image, CPU)).numpy()
 
@@ -138,7 +139,7 @@ def test_e1p_wrapper_checks_operands():
     params, image = both(port, PF.PF_420_U8_P0P1P2, CS.YCBCR_BT601_256LVLS,
                          16, 16, 75, 1, 420, True)
     plan = make_plan(params, image)
-    ctx = _EncContext(plan, *port.Encoder(backend="golden")._tables(params),
+    ctx = EncContext(plan, *encode_tables(params.quality),
                       CPU)
     t, g = ctx.tables, ctx.planes
     planes = torch.zeros(g.total, dtype=torch.uint8)

@@ -18,6 +18,8 @@ from gpujpeg_tpu.ops import jax_pipeline as ref_jp
 from gpujpeg_tpu_torch.ops import pipeline
 from gpujpeg_tpu_torch.ops.preprocess import upload_raw
 from gpujpeg_tpu_torch.plan import make_plan
+from gpujpeg_tpu_torch.stream.writer import assemble, scan_bodies
+from gpujpeg_tpu_torch.tables import encode_tables
 
 CPU = torch.device("cpu")
 
@@ -52,14 +54,13 @@ def port_streams(img, q, ri):
     enc = port.Encoder(backend="torch", device="cpu")
     by_e1 = enc.encode(img.reshape(-1), params, image)
     plan = make_plan(params, image)
-    quant_zz, huff = enc._tables(params)
-    ctx = pipeline._EncContext(plan, quant_zz, huff, CPU)
+    quant_zz, huff = encode_tables(params.quality)
+    ctx = pipeline.EncContext(plan, quant_zz, huff, CPU)
     assert ctx.rgb_route
     out, out_len, _, _ = ctx.entropy(ctx.coefficients_planes(
         upload_raw(img.reshape(-1), image, CPU)))
-    bodies, sizes = pipeline._split_scan_bodies(plan, ctx, out,
-                                                out_len.numpy())
-    return by_e1, enc._assemble(plan, quant_zz, huff, bodies, sizes)
+    bodies, sizes = scan_bodies(plan, [ctx.compact(out, out_len.numpy())])
+    return by_e1, assemble(plan, quant_zz, huff, bodies, sizes)
 
 
 @pytest.mark.parametrize("pin,h,w,q,ri,content,kind", PINS,

@@ -15,7 +15,7 @@ import gpujpeg_tpu_torch as port
 from gpujpeg_tpu.ops import entropy_v2 as ref_ev2
 from gpujpeg_tpu.ops import jax_pipeline as ref_jp
 from gpujpeg_tpu.plan import make_plan as ref_make_plan
-from gpujpeg_tpu_torch.ops.pipeline import _EncContext
+from gpujpeg_tpu_torch.ops.pipeline import EncContext
 from gpujpeg_tpu_torch.plan import make_plan
 
 #: the JAX package's entropy kernels, by the names of the port's records
@@ -114,7 +114,7 @@ def test_plain_e2_e3_match_pallas_entropy_kernels(monkeypatch, geometry):
     params = port.Parameters(quality=q, restart_interval=ri,
                              interleaved=interleaved
                              ).with_chroma_subsampling(sub)
-    ctx = _EncContext(make_plan(params, image), quant_zz, huff,
+    ctx = EncContext(make_plan(params, image), quant_zz, huff,
                       torch.device("cpu"))
     out, out_len, seg_bits, n_ff = ctx.entropy(torch.from_numpy(coeff))
     got = _segments(out.numpy(), out_len, seg_bits, n_ff, S,

@@ -27,7 +27,8 @@ import plain_restartless as plain
 
 import gpujpeg_tpu_torch as port
 import gpujpeg_tpu_torch.models.decoder as dmod
-from gpujpeg_tpu_torch.models.decoder import Decoder, huffman_maps
+from gpujpeg_tpu_torch.models.decoder import (Decoder, huffman_maps,
+                                               plan_from_info)
 from gpujpeg_tpu_torch.ops import decode as D
 from gpujpeg_tpu_torch.ops import pipeline
 from gpujpeg_tpu_torch.plan import make_plan
@@ -91,10 +92,10 @@ def parts(data: bytes, device="cpu"):
     """(decode context, rows on ``device``, each segment's data bits) of
     a stream decoded to interleaved RGB."""
     info = read_image(data)
-    plan, sd, segs = Decoder(backend="golden")._plan_from_info(info)
+    plan, sd, segs = plan_from_info(info)
     dc, ac = huffman_maps(info)
     out = port.ImageParameters(width=info.width, height=info.height)
-    ctx = pipeline._dec_context({}, plan, info, dc, ac, out,
+    ctx = pipeline.dec_context({}, plan, info, dc, ac, out,
                                 torch.device(device))
     rows = torch.from_numpy(ctx.rows(sd, segs)).to(device)
     return ctx, rows, (D._geometry_fields(ctx.geo)["bits"] if ctx.lanes
@@ -180,7 +181,7 @@ def test_another_frames_geometry_gives_the_same_coefficients():
     assert torch.equal(want, plain.decode(port_stream("420n", seed=1)))
     for seed, noise in ((2, 0.0), (3, 30.0)):
         other = port_stream("420n", img=rgb(31, 45, seed, noise))
-        plan, sd, segs = Decoder(backend="golden")._plan_from_info(
+        plan, sd, segs = plan_from_info(
             read_image(other))
         ctx.rows(sd, segs)
         assert not np.array_equal(D._geometry_fields(ctx.geo)["bits"], bits)
@@ -192,7 +193,7 @@ def test_the_row_builder_counts_each_segments_words(monkeypatch):
     each segment's destuffed bytes over 4, rounded up; the rows the
     same either way. A lane decode before any rows raises."""
     for name in ("444n", "420i"):
-        plan, sd, segs = Decoder(backend="golden")._plan_from_info(
+        plan, sd, segs = plan_from_info(
             read_image(port_stream(name)))
         got = []
         for native in (True, False):
@@ -212,10 +213,10 @@ def test_the_row_builder_counts_each_segments_words(monkeypatch):
             assert words[s] == -(-n // 4)
             assert not rows[s, words[s]:].any() and rows[s, words[s] - 1]
     info = read_image(port_stream("420i"))
-    ctx = pipeline._dec_context({}, plan, info, *huffman_maps(info),
+    ctx = pipeline.dec_context({}, plan, info, *huffman_maps(info),
                                 port.ImageParameters(width=53, height=37),
                                 torch.device("cpu"))
-    with pytest.raises(ValueError, match="_DecContext.rows"):
+    with pytest.raises(ValueError, match="DecContext.rows"):
         ctx.coefficients(torch.from_numpy(rows))
 
 
@@ -277,7 +278,7 @@ def test_the_route_is_decided_by_the_frames_blocks(monkeypatch):
     device route; with restart markers the rule by segments holds at any
     block threshold; the 12 MP camera frame takes the device route."""
     data = port_stream("420i")
-    n = Decoder(backend="golden")._plan_from_info(
+    n = plan_from_info(
         read_image(data))[0].n_blocks
     routes = []
     monkeypatch.setattr(pipeline, "decode_device",
@@ -300,7 +301,7 @@ def test_the_route_is_decided_by_the_frames_blocks(monkeypatch):
         rgb(64, 80, 5).reshape(-1),
         port.Parameters(quality=85, restart_interval=8),
         port.ImageParameters(width=80, height=64))
-    plan = Decoder(backend="golden")._plan_from_info(read_image(marked))[0]
+    plan = plan_from_info(read_image(marked))[0]
     assert plan.n_segments < dmod.CPU_SEGMENT_THRESHOLD <= plan.n_blocks
     assert dec._golden_route(plan)
     photo = make_plan(port.Parameters(quality=92, restart_interval=0,
@@ -444,7 +445,7 @@ def test_card_entry_points_take_the_lanes(card, monkeypatch):
         _ for _ in ()).throw(AssertionError("golden route")))
     dec = Decoder(backend="torch", device=card)
     dec.set_output_format(port.ColorSpace.RGB, port.PixelFormat.PF_444_U8_P012)
-    assert not dec._golden_route(Decoder(backend="golden")._plan_from_info(
+    assert not dec._golden_route(plan_from_info(
         read_image(data))[0])
     d1_before, before = D.huffman_decode.launches, D.huffman_lanes.launches
     raw, oi = dec.decode(data)

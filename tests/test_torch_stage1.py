@@ -28,7 +28,7 @@ from gpujpeg_tpu_torch.ops import dct, entropy
 from gpujpeg_tpu_torch.ops.preprocess import (
     plane_geometry, preprocess_planes, upload_raw)
 from gpujpeg_tpu_torch.plan import make_plan
-from gpujpeg_tpu_torch.tables import device_tables
+from gpujpeg_tpu_torch.tables import device_tables, encode_tables
 from gpujpeg_tpu_torch.tools import ablate_stage1, perf_rgbpack, perf_stage1
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -155,7 +155,7 @@ def test_plain_e12_equals_plain_e2(interleaved, sub):
     quotients, bit for bit (real content, both scan orders)."""
     params, image = _rgb_params(port, 64, 48, 85, 2, interleaved, sub)
     plan = make_plan(params, image)
-    quant_zz, huff = port.Encoder(backend="golden")._tables(params)
+    quant_zz, huff = encode_tables(params.quality)
     t = device_tables(quant_zz, huff, "cpu")
     g = plane_geometry(plan, "cpu")
     img = make_test_rgb(48, 64)
@@ -394,7 +394,7 @@ def test_stop_modes_plain_on_a_few_blocks(stop):
     W = 4 cuts the long strings)."""
     rng = np.random.default_rng(5)
     params = port.Parameters(quality=75, restart_interval=32)
-    quant_zz, huff = port.Encoder(backend="golden")._tables(params)
+    quant_zz, huff = encode_tables(params.quality)
     t = device_tables(quant_zz, huff, "cpu")
     yy, xx = np.mgrid[0:8, 0:8]
     blocks = np.stack([np.full(64, 128), rng.integers(0, 256, 64),

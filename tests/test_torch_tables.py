@@ -13,9 +13,9 @@ import gpujpeg_tpu as ref
 import gpujpeg_tpu_torch as port
 from gpujpeg_tpu.ops.entropy_v2 import build_packed_tables as ref_packed
 from gpujpeg_tpu.tables import dct_zigzag_operator as ref_dct
-from gpujpeg_tpu_torch.ops.pipeline import (
-    _EncContext, _split_scan_bodies, upload_rgb)
+from gpujpeg_tpu_torch.ops.pipeline import EncContext, upload_rgb
 from gpujpeg_tpu_torch.plan import make_plan
+from gpujpeg_tpu_torch.stream.writer import assemble, scan_bodies
 from gpujpeg_tpu_torch.tables import device_tables
 
 
@@ -66,11 +66,10 @@ def test_port_encode_with_reference_tables_matches_reference(interleaved):
     params = port.Parameters(quality=q, restart_interval=ri,
                              interleaved=interleaved)
     plan = make_plan(params, image)
-    ctx = _EncContext(plan, quant_zz, huff, torch.device("cpu"))
+    ctx = EncContext(plan, quant_zz, huff, torch.device("cpu"))
     out, out_len, _, _ = ctx.run(upload_rgb(img, plan, ctx.device))
-    bodies, sizes = _split_scan_bodies(plan, ctx, out, out_len.numpy())
-    got = port.Encoder(backend="torch", device="cpu")._assemble(
-        plan, quant_zz, huff, bodies, sizes)
+    bodies, sizes = scan_bodies(plan, [ctx.compact(out, out_len.numpy())])
+    got = assemble(plan, quant_zz, huff, bodies, sizes)
     assert got == expect
 
 
@@ -84,9 +83,9 @@ def test_decode_tables_carry_reference_tables(q):
     from gpujpeg_tpu.tables import quant_table_zz as ref_quant_zz
     from gpujpeg_tpu.stream.reader import read_image as ref_read
     from gpujpeg_tpu.models.decoder import huffman_maps as ref_maps
-    from gpujpeg_tpu_torch.models.decoder import huffman_maps
+    from gpujpeg_tpu_torch.models.decoder import huffman_maps, plan_from_info
     from gpujpeg_tpu_torch.ops import dct, decode
-    from gpujpeg_tpu_torch.ops.pipeline import _dec_context
+    from gpujpeg_tpu_torch.ops.pipeline import dec_context
     from gpujpeg_tpu_torch.stream.reader import read_image
     from gpujpeg_tpu_torch.tables import decode_device_tables
 
@@ -99,10 +98,9 @@ def test_decode_tables_carry_reference_tables(q):
     data = port.Encoder(backend="golden").encode(img.reshape(-1), params,
                                                  image)
     info = read_image(data)
-    plan, scan_data, segs = port.Decoder(
-        backend="golden")._plan_from_info(info)
-    ctx = _dec_context({}, plan, info, *huffman_maps(info), image,
-                       torch.device("cpu"))
+    plan, scan_data, segs = plan_from_info(info)
+    ctx = dec_context({}, plan, info, *huffman_maps(info), image,
+                      torch.device("cpu"))
 
     rinfo = ref_read(data)
     uniq, dc_slot, ac_slot = decode.table_slots(plan, *ref_maps(rinfo))
