@@ -33,8 +33,10 @@ the first failure:
    segment without a tie; first-call and steady-state encode times, the
    device time of E1-E3 by CUDA events, and ``stats.asdict()`` of an
    encode with ``perf_stats`` on;
-5. the decode kernels (D1 huffman_decode, D2 idct_rgb) on phase 4's
-   stream against their plain versions: D1 bit-exact and equal to the
+5. the decode kernels (D0 destuff_rows, D1 huffman_decode, D2 idct_rgb)
+   on phase 4's stream against their plain versions: D0's rows equal to
+   the host's ``gj_build_rows``' there and on an HD 4:2:0 stream at
+   interval 4, where D0 is timed too; D1 bit-exact and equal to the
    native golden decoder, and bit-exact on its corrupt-stream envelope
    (``decode.envelope_rows``) with the Annex K tables and with a 16-bit
    ZRL; D2 (a separable IDCT, its plain version the dense operator) equal
@@ -253,6 +255,7 @@ REPLACES_E3 = ("gpujpeg_tpu/ops/entropy_v2.py:955 (merge, stuffing, RST) + "
                "gpujpeg_tpu/ops/entropy_v2.py:1164 + "
                "gpujpeg_tpu/ops/entropy_v2.py:1603")
 DEC_PSNR_DB = 0.01
+REPLACES_D0 = "none (the host's gj_build_rows, native/host_codec.cpp)"
 REPLACES_D1 = "gpujpeg_tpu/ops/pallas_decode_v3.py:100"
 REPLACES_D2 = ("gpujpeg_tpu/ops/pallas_decode_v3.py:596 + "
                "gpujpeg_tpu/ops/pallas_decode.py:238")
@@ -686,6 +689,7 @@ def phase_decode_kernels(gj, data: bytes, card: str) -> list[dict]:
         fail("D1 disagrees with its plain version or the golden decoder")
     del coeff_p, gold
     d1_envelope_check()
+    d0, d0_bad, hd_row = d0_check(gj, gold_args, rows)
 
     xf_id = transform_consts_tensor((None, None), "cuda")
     d2_id = (coeff, t.quant, t.q_of, xf_id, ctx.interleaved, H, W)
@@ -714,6 +718,9 @@ def phase_decode_kernels(gj, data: bytes, card: str) -> list[dict]:
 
     rows_out = []
     for name, src, repl, kern, plain, args, errv, plain_ms, bnd in (
+            ("destuff_rows", "destuff_rows.cu", REPLACES_D0,
+             decode.destuff_rows, decode.destuff_rows_plain, d0, d0_bad,
+             None, bound(nbytes(d0[0], d0[1], rows))),
             ("huffman_decode", "huffman_decode.cu", REPLACES_D1,
              decode.huffman_decode, None, d1, err1, d1_plain_ms,
              bound(nbytes(*d1, coeff))),
@@ -732,7 +739,54 @@ def phase_decode_kernels(gj, data: bytes, card: str) -> list[dict]:
                          "replaces": repl, "launches": 0,
                          "max_abs_err": errv, "ms": ms,
                          "plain_ms": plain_ms, **bnd, "library_ms": None})
+    rows_out[0]["hd"] = hd_row
     return rows_out
+
+
+def d0_check(gj, gold_args, rows) -> tuple:
+    """D0 on phase 4's 8K stream (its scans and ranges uploaded as the
+    decode uploads them) against ``gj_build_rows``' ``rows``, and on an HD
+    4:2:0 interleaved stream at interval 4 (the HD bench cell's plan),
+    timed there with its bound and plain version: (D0's arguments at 8K,
+    the words that differ, the HD timing)."""
+    from gpujpeg_tpu_torch.ops import decode
+    from gpujpeg_tpu_torch.ops.pipeline import upload_scan
+    from gpujpeg_tpu_torch.stream.reader import read_image
+    dev = torch.device("cuda")
+    x = decode.scan_bytes(*gold_args[:3])
+    up = upload_scan(x, dev)
+    d0 = (up.data, up.ranges, up.wcap)
+    bad = int((decode.destuff_rows(*d0) != rows).sum())
+    hd = gj.ImageParameters(width=1920, height=1080,
+                            color_space=gj.ColorSpace.RGB,
+                            pixel_format=gj.PixelFormat.PF_444_U8_P012)
+    hp = gj.Parameters(quality=QUALITY, restart_interval=4,
+                       interleaved=True) \
+        .with_chroma_subsampling(420)
+    hd_data = gj.Encoder(backend="torch", device="cuda").encode(
+        make_image(1080, 1920).reshape(-1), hp, hd)
+    info = read_image(hd_data)
+    plan, sd, segs = plan_from_info(info)
+    hx = decode.scan_bytes(plan, sd, segs)
+    hup = upload_scan(hx, dev)
+    h0 = (hup.data, hup.ranges, hup.wcap)
+    h_rows = decode.destuff_rows(*h0)
+    h_bad = int((h_rows.cpu() != torch.from_numpy(
+        decode.build_rows(plan, sd, segs))).sum())
+    print(f"phase 5: D0 destuff_rows {x.ranges.shape[1]} segments of "
+          f"{x.n_data} scan bytes, rows {tuple(rows.shape)}: {bad} words "
+          f"differ from gj_build_rows'; HD {plan.n_segments} segments of "
+          f"{hx.n_data} bytes, rows {tuple(h_rows.shape)}: {h_bad}",
+          flush=True)
+    if bad or h_bad:
+        fail("D0 disagrees with gj_build_rows")
+    hd_row = {"ms": cuda_ms(lambda: decode.destuff_rows(*h0), 10),
+              "plain_ms": cuda_ms(lambda: decode.destuff_rows_plain(*h0), 1),
+              **bound(nbytes(hup.data, hup.ranges, h_rows))}
+    print(f"phase 5: D0 destuff_rows at HD {hd_row['ms']:.4f} ms, plain "
+          f"{hd_row['plain_ms']:.4f} ms, bound {hd_row['bound_ms']:.4f} ms "
+          f"({hd_row['bound_by']})", flush=True)
+    return d0, bad, hd_row
 
 
 def dec_stage_ms(dec, data: bytes, out_image) -> np.ndarray:
@@ -766,7 +820,7 @@ def phase_decode(gj, img, data: bytes, card: str) -> dict:
     from gpujpeg_tpu_torch.ops import dct, decode
     from gpujpeg_tpu_torch.stream.reader import read_image
 
-    kernels = (decode.huffman_decode, dct.idct_rgb)
+    kernels = (decode.destuff_rows, decode.huffman_decode, dct.idct_rgb)
     dec = gj.Decoder(backend="torch", device="cuda")
     for k in kernels:
         k.launches = 0
@@ -2536,7 +2590,7 @@ def phase_batch(gj, img: np.ndarray, data: bytes, card: str) -> list:
     dec.capture_device_call = True
     ref_raw, _ = dec.decode(data)
     fn, args = dec.last_device_call
-    if not (all(a.is_cuda for a in args)
+    if not (all(a.device.type == "cuda" for a in args)
             and torch.equal(fn(*args).cpu(), torch.from_numpy(ref_raw))):
         fail("phase 14 (iv): the captured device call's replay differs from "
              "the decode")

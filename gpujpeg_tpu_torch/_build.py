@@ -62,6 +62,7 @@ SIGNATURES = {
                               _I, _P, _P, _P],
     "gj_copy_bytes": [_P, _P, _L, _P],
     "gj_copy_bytes_grid": [_L, _P, _P],
+    "gj_destuff_rows": [_P, _L, _P, _I, _I, _P, _P],
 }
 
 

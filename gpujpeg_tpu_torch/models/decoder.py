@@ -17,8 +17,8 @@ without them, by the frame's work: fewer than
 :data:`CPU_BLOCK_THRESHOLD` blocks.
 
 :meth:`Decoder.decode_batch` pipelines a frame sequence: the next
-frame's parse and row build run on the host while earlier frames'
-kernels and copies back proceed. The reference's ``_fuse_frames`` and
+frame's parse and segment ranges (the row build on the lane route) run
+on the host while earlier frames' kernels and copies back proceed. The reference's ``_fuse_frames`` and
 ``_launch_fused`` (B same-geometry frames vmapped into one launch) have
 no counterpart: they amortised the TPU's dispatch floor, and one frame's
 kernels already fill the card (``ops/pipeline.py``). Its
@@ -162,7 +162,7 @@ class _Job(NamedTuple):
 class DecoderStats:
     def __init__(self) -> None:
         self.duration_stream = 0.0
-        self.duration_memory_to = 0.0      # segment-rows upload
+        self.duration_memory_to = 0.0      # scans and ranges (or rows) up
         self.duration_huffman_coder = 0.0
         self.duration_dct_quantization = 0.0
         self.duration_postprocessor = 0.0
@@ -255,13 +255,14 @@ class Decoder:
         """Decode a frame sequence; returns ``[(raw, ImageParameters),
         ...]`` in order, each equal to :meth:`decode` of that stream
         (reference: ``Decoder.decode_batch``). At most ``window`` frames
-        are in flight: a frame's parse and row build run on the host
-        before the oldest frame is waited for, so they overlap the device
-        work of the frames before it. Frames that take the golden route
-        are decoded in turn as their own entries; frames of another
-        geometry or table set take their own decode context. With
-        :attr:`output_to_device` each device-route frame stays on the
-        device. On the card the rows go up through pinned memory and each
+        are in flight: a frame's parse and segment ranges (its row build
+        on the lane route) run on the host before the oldest frame is
+        waited for, so they overlap the device work of the frames before
+        it. Frames that take the golden route are decoded in turn as
+        their own entries; frames of another geometry or table set take
+        their own decode context. With :attr:`output_to_device` each
+        device-route frame stays on the device. On the card the scans
+        and ranges (or rows) go up through pinned memory and each
         frame comes back into pinned memory of its own. A corrupt stream
         raises :class:`JpegParseError` there and leaves the decoder
         usable. Per-frame stats are not recorded; with :attr:`perf_stats`
@@ -290,11 +291,11 @@ class Decoder:
                 if self._golden_route(job.plan):
                     raw = self._decode_golden(*job)
                 else:
-                    ctx, rows = decode_prep(self._contexts, self.device,
+                    ctx, host = decode_prep(self._contexts, self.device,
                                             *job)
                     while len(pending) >= window:
                         collect()
-                    raw = decode_launch(ctx, rows, staging,
+                    raw = decode_launch(ctx, host, staging,
                                         not self.output_to_device)
                     if self.capture_device_call:
                         self.last_device_call = raw.replay

@@ -1,11 +1,17 @@
-"""Segment-parallel Huffman decode of the device decode: host prep and D1.
+"""Segment-parallel Huffman decode of the device decode: host prep, D0
+and D1.
 
 Counterpart of the JAX reference's ``gpujpeg_tpu/ops/pallas_decode.py``
-(host half) and of its three Huffman decoders. The host destuffs every
-restart segment into a row of big-endian u32 words
-(:func:`build_segment_rows_from_ranges`, the native ``gj_build_rows``);
-the decode tables (:func:`build_dec_tables_v2`) and the DC-first table
-slots (:func:`table_slots`) are the reference's, bit for bit.
+(host half) and of its three Huffman decoders. Every restart segment is
+destuffed into a row of big-endian u32 words: on the host by
+:func:`build_rows` (:func:`build_segment_rows_from_ranges`, the native
+``gj_build_rows``), as the reference does, or, on the decode's card
+route, on the card by **D0** :func:`destuff_rows`
+(``csrc/destuff_rows.cu``, a warp a segment), from the scans' bytes and
+the segments' ranges (:func:`scan_bytes`), which go up in place of the
+rows; the two give the same rows bit for bit. The decode tables
+(:func:`build_dec_tables_v2`) and the DC-first table slots
+(:func:`table_slots`) are the reference's, bit for bit.
 
 **D1** :func:`huffman_decode` (``csrc/huffman_decode.cu``) decodes the
 rows to zig-zag coefficients in scan order, one thread per segment
@@ -25,10 +31,11 @@ for tensors on the CPU.
 
 **D1L** :func:`huffman_lanes` (``csrc/huffman_lanes.cu``) decodes the
 scans of a stream without restart markers, each one segment a row of
-:func:`build_rows`, by self-synchronising lanes of
-:data:`LANE_BITS` bits: to D1's coefficients, bit for bit, with many
-threads a segment where D1 has one (Klein & Wiseman 2003; Weissenberger &
-Schmidt, arXiv 2111.09219). Its plain torch version
+:func:`build_rows` (built on the host: the lanes' geometry needs each
+segment's destuffed length before the launch), by self-synchronising
+lanes of :data:`LANE_BITS` bits: to D1's coefficients, bit for bit, with
+many threads a segment where D1 has one (Klein & Wiseman 2003;
+Weissenberger & Schmidt, arXiv 2111.09219). Its plain torch version
 :func:`huffman_lanes_plain` runs the same passes in lockstep.
 
 Both follow K2 where it differs from the golden decoder on a corrupt
@@ -59,6 +66,8 @@ QUICK_BITS = 8
 MAX_SLOTS = 4
 #: lookahead bits of D1's first-level table (``wide_quick_tables``)
 WIDE_BITS = 11
+#: the most scan bytes D0 takes: int32 offsets, with a step of room
+MAX_SCAN_BYTES = (1 << 31) - 1 - 128
 
 
 # ---------------------------------------------------------------------------
@@ -184,48 +193,98 @@ def quant_slots(plan, info):
 # Host-side stream prep: destuffed per-segment word rows
 # ---------------------------------------------------------------------------
 
-def _segment_ranges(scan_data, segments_by_scan, plan):
-    """Global (lo, hi) byte ranges of every plan segment in the
-    concatenated scan data (vectorized; missing segments get -1)."""
-    S = plan.n_segments
-    scan_base = []
-    base = 0
-    for sd in scan_data:
-        scan_base.append(base)
-        base += int(np.asarray(sd).size)
-    concat = (np.concatenate([np.asarray(s, np.uint8).reshape(-1)
-                              for s in scan_data])
-              if base else np.zeros(1, np.uint8))
-    lo = np.full(S, -1, np.int64)
-    hi = np.full(S, -1, np.int64)
+def _segment_ranges(scan_data, segments_by_scan, plan, dtype=np.int64):
+    """(each scan's bytes as a flat uint8 array, (2, S) ``dtype`` ranges):
+    the global lo (row 0) and hi (row 1) byte offsets of every plan
+    segment in the scans laid end to end (missing segments get -1). A
+    plan numbers the segments of scan ``i`` in order from
+    ``plan.scans[i].segment_index_start``, so each scan's ranges are one
+    slice."""
+    scans = [np.asarray(s, np.uint8).reshape(-1) for s in scan_data]
+    scan_base = np.cumsum([0] + [s.size for s in scans])
+    ranges = np.full((2, plan.n_segments), -1, dtype)
     for scan_id, seg_list in enumerate(segments_by_scan):
-        if len(seg_list) == 0:
+        sp = plan.scans[scan_id]
+        n = min(sp.segment_count, len(seg_list))
+        if n == 0:
             continue
-        arr = np.asarray(seg_list, np.int64)            # (n, 2)
-        sel = np.flatnonzero(plan.seg_scan == scan_id)
-        n = min(sel.size, arr.shape[0])
-        idx = plan.seg_scan_index[sel[:n]]
-        valid = idx < arr.shape[0]
-        lo[sel[:n][valid]] = scan_base[scan_id] + arr[idx[valid], 0]
-        hi[sel[:n][valid]] = scan_base[scan_id] + arr[idx[valid], 1]
-    return concat, lo, hi
+        arr = np.asarray(seg_list, np.int64)[:n]        # (n, 2)
+        at = slice(sp.segment_index_start, sp.segment_index_start + n)
+        ranges[:, at] = (arr + scan_base[scan_id]).T
+    return scans, ranges
+
+
+def _wcap(lo, hi) -> int:
+    """The row width in words that holds the longest segment's raw bytes
+    with one zero word to spare."""
+    max_raw = int(np.maximum(hi - lo, 1).max()) if lo.size else 1
+    return -(-(max_raw + 4) // 4)
 
 
 def segment_ranges_wcap(scan_data, segments_by_scan, plan):
-    """(concat bytes, lo, hi, wcap): the segment ranges and the row
-    width in words that holds the longest segment with one zero word
-    to spare."""
-    S = plan.n_segments
-    concat, lo, hi = _segment_ranges(scan_data, segments_by_scan, plan)
-    max_raw = int(np.maximum(hi - lo, 1).max()) if S else 1
-    return concat, lo, hi, -(-(max_raw + 4) // 4)
+    """(concat bytes, lo, hi, wcap): the scans concatenated, the segment
+    ranges in them and the row width (:func:`_wcap`)."""
+    scans, (lo, hi) = _segment_ranges(scan_data, segments_by_scan, plan)
+    concat = (np.concatenate(scans) if sum(s.size for s in scans)
+              else np.zeros(1, np.uint8))
+    return concat, lo, hi, _wcap(lo, hi)
+
+
+@dataclasses.dataclass(frozen=True)
+class ScanBytes:
+    """The host half of a decode on the card route (:func:`scan_bytes`):
+    what goes up in place of the rows, from which D0 builds them."""
+
+    #: each scan's bytes, flat uint8 host arrays (views of the stream)
+    scans: tuple
+    #: (2, S) int32: each plan segment's lo and hi in the scans laid end
+    #: to end, -1 for a missing segment
+    ranges: np.ndarray
+    #: the rows' width in words, :func:`build_rows`'
+    wcap: int
+
+    @property
+    def n_data(self) -> int:
+        """The scans' bytes."""
+        return sum(s.size for s in self.scans)
+
+    @property
+    def nbytes(self) -> int:
+        """The bytes uploaded: the scans' and the ranges'."""
+        return self.n_data + self.ranges.nbytes
+
+    def parts(self) -> tuple:
+        """(((host array, byte offset), ...), total bytes): the scans back
+        to back from 0, then the ranges at the next 16-byte boundary."""
+        off, parts = 0, []
+        for s in self.scans:
+            parts.append((s, off))
+            off += s.size
+        r0 = -(-off // 16) * 16
+        parts.append((self.ranges, r0))
+        return tuple(parts), r0 + self.ranges.nbytes
+
+
+def scan_bytes(plan, scan_data, segments_by_scan) -> ScanBytes:
+    """The card route's host half of a plan's decode: the scans as they
+    lie in the stream (no copy), each segment's range in them and
+    :func:`build_rows`' row width, from the raw lengths. Raises
+    ValueError for scans of 2**31 bytes or more (int32 ranges)."""
+    n = sum(np.asarray(s).size for s in scan_data)
+    if n > MAX_SCAN_BYTES:
+        raise ValueError(f"the card route takes scans of at most "
+                         f"{MAX_SCAN_BYTES} bytes, got {n}")
+    scans, ranges = _segment_ranges(scan_data, segments_by_scan, plan,
+                                    np.int32)
+    return ScanBytes(tuple(scans), ranges, _wcap(*ranges))
 
 
 def build_segment_rows_from_ranges(concat, lo, hi, S: int,
                                    Wcap: int, words=None) -> np.ndarray:
     """Destuffed (S, Wcap) uint32 rows of big-endian words; a missing
-    segment's row is zero. ``words``, an (S,) int64 array where given,
-    gets each segment's destuffed length in words."""
+    segment's row (lo < 0, hi <= lo or hi past the data) is zero and data
+    past ``Wcap`` words is cut. ``words``, an (S,) int64 array where
+    given, gets each segment's destuffed length in words."""
     from ..native import lib as native_lib
 
     L = native_lib()
@@ -246,11 +305,11 @@ def build_segment_rows_from_ranges(concat, lo, hi, S: int,
     if words is not None:
         words[:] = 0
     for s in range(S):
-        if lo[s] < 0 or hi[s] <= lo[s]:
+        if lo[s] < 0 or hi[s] <= lo[s] or hi[s] > concat.size:
             continue
         d = concat[lo[s]:hi[s]]
         prev = np.concatenate([[0], d[:-1]])
-        d = d[~((d == 0) & (prev == 0xFF))]
+        d = d[~((d == 0) & (prev == 0xFF))][:Wcap * 4]
         rows8[s, :d.size] = d
         if words is not None:
             words[s] = -(-d.size // 4)
@@ -360,6 +419,72 @@ def build_rows(plan, scan_data, segments_by_scan, words=None) -> np.ndarray:
                                                plan)
     return build_segment_rows_from_ranges(concat, lo, hi, plan.n_segments,
                                           wcap, words).view(np.int32)
+
+
+# ---------------------------------------------------------------------------
+# D0: the rows built on the card
+# ---------------------------------------------------------------------------
+
+def destuff_rows(data: torch.Tensor, ranges: torch.Tensor,
+                 wcap: int) -> torch.Tensor:
+    """The scans' bytes ``data`` (N,) uint8 and each segment's (lo, hi) in
+    them, ``ranges`` (2, S) int32 -> (S, wcap) int32 rows of destuffed
+    big-endian words, those of :func:`build_segment_rows_from_ranges` (the
+    native ``gj_build_rows``) bit for bit: a 0x00 whose predecessor in the
+    segment is 0xFF is dropped, words past the data are zero, a missing
+    segment's row (lo < 0, hi <= lo or hi > N) is zero, data past ``4 *
+    wcap`` bytes is cut. On the card ``csrc/destuff_rows.cu`` writes every
+    word of the rows (no memset; 16-byte aligned, as D1 wants them); on
+    the CPU the plain version :func:`destuff_rows_plain` runs."""
+    if ranges.dim() != 2 or data.dim() != 1:
+        raise ValueError("data must be 1-dimensional and ranges (2, S)")
+    S = ranges.shape[1]
+    check_operands({"data": (data, data.shape, torch.uint8),
+                    "ranges": (ranges, (2, S), torch.int32)}, data.device)
+    if wcap < 1 or data.numel() > MAX_SCAN_BYTES:
+        raise ValueError(f"destuff_rows takes wcap >= 1 and at most "
+                         f"{MAX_SCAN_BYTES} bytes, got wcap {wcap} and "
+                         f"{data.numel()} bytes")
+    if data.device.type == "cpu":
+        return destuff_rows_plain(data, ranges, wcap)
+    if data.device.type != "cuda":
+        raise ValueError(f"unsupported device {data.device}")
+    rows = torch.empty((S, wcap), dtype=torch.int32, device=data.device)
+    _build.launch("gj_destuff_rows", data.device, data.data_ptr(),
+                  data.numel(), ranges.data_ptr(), S, wcap, rows.data_ptr())
+    destuff_rows.launches += 1
+    return rows
+
+
+destuff_rows.launches = 0
+
+
+def destuff_rows_plain(data: torch.Tensor, ranges: torch.Tensor,
+                       wcap: int) -> torch.Tensor:
+    """Plain torch version of :func:`destuff_rows`: every segment's bytes
+    gathered into one flat run, the drops marked, each kept byte placed
+    by a cumulative sum, in int64."""
+    dev = data.device
+    S, N = ranges.shape[1], data.numel()
+    lo, hi = ranges[0].to(torch.int64), ranges[1].to(torch.int64)
+    n = torch.where((lo >= 0) & (hi > lo) & (hi <= N), hi - lo, 0)
+    seg = torch.repeat_interleave(torch.arange(S, device=dev), n)
+    first = torch.cumsum(n, 0) - n                  # each segment's first
+    j = torch.arange(seg.numel(), device=dev) - first[seg]
+    x = data.to(torch.int64)[lo[seg] + j]
+    prev = torch.cat([x.new_zeros(1), x[:-1]])
+    keep = ~((x == 0) & (prev == 0xFF) & (j > 0))
+    kept = torch.zeros(S, dtype=torch.int64, device=dev).index_add_(
+        0, seg, keep.to(torch.int64))
+    at = torch.cumsum(keep.to(torch.int64), 0) - 1 \
+        - (torch.cumsum(kept, 0) - kept)[seg]
+    put = keep & (at < 4 * wcap)
+    b = torch.zeros(S * wcap * 4, dtype=torch.int64, device=dev)
+    b[seg[put] * (4 * wcap) + at[put]] = x[put]
+    b = b.view(S, wcap, 4)
+    words = (b[..., 0] << 24) | (b[..., 1] << 16) | (b[..., 2] << 8) \
+        | b[..., 3]
+    return _wrap32(words).to(torch.int32)
 
 
 # ---------------------------------------------------------------------------

@@ -27,25 +27,28 @@ geometry, so they stand for the reference's K6 entropy half, K7 and the
 **Decode** (entropy bytes -> raw frame; the reference's
 ``_decode_device_v2``): a per-(plan, output, tables) :class:`DecContext`
 holds the decode tables, IDCT operators and geometry on the decoder's
-device; :func:`decode_device` builds the destuffed segment rows on the
-host, uploads them and takes one of two routes after the Huffman decode:
-D1 huffman_decode (ops/decode.py), the counterpart of K2's Huffman half,
-K4 and K5, or, for a stream without restart markers (each scan one
-segment), D1L huffman_lanes, which cuts each scan into lanes of bits that
-decode at once (:func:`decode.lane_eligible`):
+device. For a stream with restart markers :func:`decode_device`
+computes each segment's range in the scans on the host, uploads the
+scans' bytes as they lie in the stream with the ranges, and D0
+destuff_rows (ops/decode.py) builds the destuffed segment rows on the
+card for D1 huffman_decode, the counterpart of K2's Huffman half, K4 and
+K5. A stream without restart markers (each scan one segment) has its
+rows built on the host (the lanes' geometry needs their lengths) and
+takes D1L huffman_lanes, which cuts each scan into lanes of bits that
+decode at once (:func:`decode.lane_eligible`). Then one of two routes:
 
 * three full-resolution components decoded to interleaved RGB
   (:func:`decode_eligible`; the reference's px branch):
 
-      D1 -> D2 idct_rgb (ops/dct.py)
+      D0 -> D1 -> D2 idct_rgb (ops/dct.py)
 
 * every other plan and output (any sampling, interleaved or not, 1/3/4
   components, all 8 pixel formats, any colour pair; the reference's
   plan tail: the scan reorder, ``dequant_idct_device``,
   ``blocks_to_plane`` and ``postprocess``):
 
-      D1 -> D2p idct_planes (ops/dct.py) -> D3 postprocess_planes
-      (ops/preprocess.py)
+      D0 -> D1 (or D1L) -> D2p idct_planes (ops/dct.py) -> D3
+      postprocess_planes (ops/preprocess.py)
 
 On a CUDA device each stage is a hand-written kernel; on the CPU each
 runs its plain torch version.
@@ -66,13 +69,16 @@ copy back run on a side stream, so they do not queue behind the later
 frames' kernels. Host frames go to the card through a
 :class:`PinnedRing` of ``depth + 1`` pinned buffers with ``non_blocking``
 copies. The decode is split for ``Decoder.decode_batch`` into
-:func:`decode_prep` (the context and the segment rows, on the host),
+:func:`decode_prep` (the context and the segments' ranges, or the lane
+route's rows, on the host),
 :func:`decode_launch` (upload through a :class:`PinnedRing`, the
 kernels, and the frame's copy back into pinned memory, without a
 sync) and :func:`decode_collect` (the wait on the frame's event). On
 the CPU there is no stream and no pinned memory and the same code runs
 frame after frame. The single-frame :func:`encode_segments_device` and
-:func:`decode_device` keep their pageable uploads.
+:func:`decode_device` keep their pageable uploads (the decode's, a copy
+a scan and one for the ranges: a pinned block of the context's own
+measured no faster inside the benchmark's loop, PERF.md §6).
 
 **Decoded frames in host memory.** A frame that a decode brings back
 from the card (``Decoder.decode``'s :func:`copy_back`, a batch's
@@ -87,15 +93,16 @@ that holds many frames holds that much page-locked memory.
 **Stage statistics and spans.** With ``Parameters.perf_stats`` (encode)
 or ``Decoder.perf_stats`` (decode) the call's :class:`trace.Tracer`
 opens a span around each host step of :func:`encode_segments_device`
-and :func:`decode_device` (the context, the upload or the rows' build
-and upload, the kernels' enqueue, the wait, the copy back) and marks the
-stage boundaries on the device: on the card a CUDA event recorded on the
-stream between two launches, read after the one sync at the end; on the
-CPU the host clock. The encode times ``duration_memory_to`` (upload),
-``duration_preprocessor`` (E0; 0 on the E1 route, whose colour
-transform is inside E1), ``duration_dct_quantization`` (E1 or E1p),
-``duration_huffman_coder`` (E2 + E3) and ``duration_memory_from``
-(compaction and copy back); the decode ``duration_huffman_coder`` (D1),
+and :func:`decode_device` (the context, the upload or the ranges (the
+lane route's row build) and their upload, the kernels' enqueue, the
+wait, the copy back) and marks the stage boundaries on the device: on
+the card a CUDA event recorded on the stream between two launches, read
+after the one sync at the end; on the CPU the host clock. The encode
+times ``duration_memory_to`` (upload), ``duration_preprocessor`` (E0; 0
+on the E1 route, whose colour transform is inside E1),
+``duration_dct_quantization`` (E1 or E1p), ``duration_huffman_coder``
+(E2 + E3) and ``duration_memory_from`` (compaction and copy back); the
+decode ``duration_huffman_coder`` (D0 + D1, or D1L),
 ``duration_dct_quantization`` (D2 or D2p) and ``duration_postprocessor``
 (D3; 0 on the D2 route). Without it no span is opened, no event is
 recorded and nothing more is synced. The batch paths get no span of
@@ -143,9 +150,9 @@ from ..tables import decode_device_tables, device_tables
 from ..trace import Tracer
 from .dct import fdct_quant, fdct_quant_planes, idct_planes, idct_rgb
 from .decode import (
-    build_dec_tables_v2, build_rows, check_cover, huffman_decode,
-    huffman_lanes, lane_eligible, lane_geometry, lane_segments, quant_slots,
-    table_slots, wide_quick_tables)
+    ScanBytes, build_dec_tables_v2, build_rows, check_cover, destuff_rows,
+    huffman_decode, huffman_lanes, lane_eligible, lane_geometry,
+    lane_segments, quant_slots, scan_bytes, table_slots, wide_quick_tables)
 from .entropy import build_seg_geometry, huffman_blocks, merge_stuff
 from .huffman_encode import compact_segments
 from .preprocess import (
@@ -189,12 +196,46 @@ def decode_eligible(plan: CoderPlan, out_image) -> bool:
             and unpack_eligible(plan, out_image) and _scan_order_ok(plan))
 
 
+def _flat_bytes(a: np.ndarray) -> np.ndarray:
+    """A host array's bytes, a flat uint8 view (a copy where it is not
+    contiguous)."""
+    return np.ascontiguousarray(a).reshape(-1).view(np.uint8)
+
+
+def _fill(buf: torch.Tensor, parts) -> None:
+    """Copy each (host array, byte offset) pair's bytes into ``buf``, a
+    flat uint8 host tensor, at its offset, by NumPy on this thread (a
+    torch copy between host tensors may run on torch's thread pool: an
+    8K decode's upload took 2-3 ms so in the benchmark's loop, PERF.md
+    §6)."""
+    dst = buf.numpy()
+    for a, off in parts:
+        a = _flat_bytes(a)
+        dst[off:off + a.size] = a
+
+
+def upload_parts(parts, total: int, device: torch.device,
+                 staging: "PinnedRing | None" = None) -> torch.Tensor:
+    """(host array, byte offset) pairs -> one flat uint8 tensor of
+    ``total`` bytes on ``device`` holding each array's bytes at its
+    offset (the bytes between parts unset): through ``staging`` (on the
+    card) in one copy that does not block the host, else a pageable copy
+    a part."""
+    if staging is not None:
+        return staging.upload_parts(parts, total, device)
+    dev = torch.empty(total, dtype=torch.uint8, device=device)
+    for a, off in parts:
+        dev[off:off + a.nbytes].copy_(torch.from_numpy(_flat_bytes(a)))
+    return dev
+
+
 class PinnedRing:
     """A ring of pinned host buffers that carries host arrays to the card
     for the batch paths: each array is copied into the next slot and sent
-    with a ``non_blocking`` copy on the current stream. A slot is refilled
-    only after the event recorded behind its last copy has completed, so
-    no buffer is overwritten under a copy in flight."""
+    with a ``non_blocking`` copy on the current stream. A slot is refilled only after the event
+    recorded behind its last copy has completed, so no buffer is
+    overwritten under a copy in flight. A slot grows to the largest
+    upload it has carried (a quarter more where it grows) and is kept."""
 
     def __init__(self, slots: int):
         self.bufs: list = [None] * slots
@@ -204,18 +245,42 @@ class PinnedRing:
     def upload(self, a: np.ndarray, device: torch.device) -> torch.Tensor:
         """Host array -> a flat uint8 tensor of its bytes on ``device`` (a
         CUDA device), queued without blocking the host."""
-        src = torch.from_numpy(np.ascontiguousarray(a).reshape(-1)
-                               .view(np.uint8))
+        src = torch.from_numpy(_flat_bytes(a))
+        k, host = self._slot(src.numel())
+        host.copy_(src)
+        return self._send(k, host, device)
+
+    def upload_parts(self, parts, total: int,
+                     device: torch.device) -> torch.Tensor:
+        """(host array, byte offset) pairs -> one flat uint8 tensor of
+        ``total`` bytes on ``device`` (a CUDA device) that holds each
+        array's bytes at its offset (:func:`_fill`), sent in one copy
+        queued without blocking the host (the bytes between parts are
+        unset)."""
+        k, host = self._slot(total)
+        _fill(host, parts)
+        return self._send(k, host, device)
+
+    def _slot(self, total: int) -> tuple:
+        """(index, pinned buffer cut to ``total`` bytes) of the next slot,
+        once its last copy has run; a slot too small grows, with a quarter
+        to spare (frames of one geometry differ by a little, and each
+        growth is a fresh page-locked allocation)."""
         k = self.next
         self.next = (k + 1) % len(self.bufs)
         if self.events[k] is not None:
             self.events[k].synchronize()
-        if self.bufs[k] is None or self.bufs[k].numel() < src.numel():
-            self.bufs[k] = torch.empty(src.numel(), dtype=torch.uint8,
-                                       pin_memory=True)
-        host = self.bufs[k][:src.numel()]
-        host.copy_(src)
-        dev = torch.empty(src.numel(), dtype=torch.uint8, device=device)
+        if self.bufs[k] is None or self.bufs[k].numel() < total:
+            grown = 0 if self.bufs[k] is None else self.bufs[k].numel()
+            self.bufs[k] = torch.empty(max(total, grown * 5 // 4),
+                                       dtype=torch.uint8, pin_memory=True)
+        return k, self.bufs[k][:total]
+
+    def _send(self, k: int, host: torch.Tensor,
+              device: torch.device) -> torch.Tensor:
+        """Slot ``k``'s filled ``host`` bytes to ``device`` without
+        blocking, the slot's event recorded behind the copy."""
+        dev = torch.empty(host.numel(), dtype=torch.uint8, device=device)
         dev.copy_(host, non_blocking=True)
         self.events[k] = torch.cuda.Event()
         self.events[k].record(torch.cuda.current_stream(device))
@@ -459,13 +524,45 @@ DEC_CONTEXTS = 4
 PINNED_TAKEN = "allocated_bytes.allocated"
 
 
+class DeviceScan(NamedTuple):
+    """:class:`decode.ScanBytes` on the device: what D0 builds the rows
+    from (:func:`decode.destuff_rows`)."""
+    data: torch.Tensor            # (N,) uint8: the scans laid end to end
+    ranges: torch.Tensor          # (2, S) int32: each segment's lo, hi
+    wcap: int                     # the rows' width in words
+
+    @property
+    def device(self) -> torch.device:
+        return self.data.device
+
+
+def upload_scan(x: ScanBytes, device: torch.device,
+                staging: PinnedRing | None = None) -> DeviceScan:
+    """:func:`decode.scan_bytes`' host half -> the same on ``device``, in
+    one buffer laid out by :meth:`decode.ScanBytes.parts`
+    (:func:`upload_parts`)."""
+    parts, total = x.parts()
+    buf = upload_parts(parts, total, device, staging)
+    r0 = parts[-1][1]
+    return DeviceScan(buf[:x.n_data], buf[r0:].view(torch.int32).view(
+        x.ranges.shape), x.wcap)
+
+
 class DecContext:
     """The decode operands of one plan, output and table set: tables,
     IDCT operators and segment geometry (for a plan without restart
     markers, the lane route's segments and its last rows' lane
     geometry), then the D2
     route's inverse-transform constants or the plan tail's block and
-    output geometry."""
+    output geometry.
+
+    A frame's decode: :meth:`prep` on the host, :meth:`upload`, then
+    :meth:`run`. On the card route (every plan off the lane route) the
+    host computes only the segments' ranges, the scans' bytes go up as
+    they lie in the stream and D0 builds the rows on the device before
+    D1; on the lane route the host builds the rows (:meth:`rows`), whose
+    destuffed lengths the lane geometry needs before the launch. Which
+    route a frame takes is the plan's alone."""
 
     def __init__(self, plan: CoderPlan, out_image, tables,
                  device: torch.device):
@@ -514,15 +611,27 @@ class DecContext:
         self.geo = lane_geometry(self.lane_segs, words * 32)
         return rows
 
-    def upload(self, rows: np.ndarray,
-               staging: PinnedRing | None = None) -> torch.Tensor:
-        """:meth:`rows`' array -> the same (S, wcap) int32 rows on the
-        context's device: a pageable copy, or through ``staging`` (on the
+    def prep(self, scan_data, segments_by_scan):
+        """The host half of a frame's decode: on the lane route the
+        plan's rows (:meth:`rows`), else the scans' bytes and the
+        segments' ranges (:func:`decode.scan_bytes`), from which D0 builds
+        the rows on the device."""
+        if self.lanes:
+            return self.rows(scan_data, segments_by_scan)
+        return scan_bytes(self.plan, scan_data, segments_by_scan)
+
+    def upload(self, x, staging: PinnedRing | None = None):
+        """:meth:`prep`'s host half on the context's device: rows (an
+        (S, wcap) int32 array, :meth:`rows`') as the same rows, a
+        :class:`decode.ScanBytes` as a :class:`DeviceScan`
+        (:func:`upload_scan`); pageable, or through ``staging`` (on the
         card) without blocking the host."""
+        if isinstance(x, ScanBytes):
+            return upload_scan(x, self.device, staging)
         if staging is None:
-            return torch.from_numpy(rows).to(self.device)
-        return staging.upload(rows, self.device).view(torch.int32).view(
-            rows.shape)
+            return torch.from_numpy(x).to(self.device)
+        return staging.upload(x, self.device).view(torch.int32).view(
+            x.shape)
 
     def coefficients(self, rows: torch.Tensor) -> torch.Tensor:
         """(S, wcap) int32 rows -> (NB, 64) int32 scan-order coefficients
@@ -564,14 +673,17 @@ class DecContext:
         _mark(clock)
         return postprocess_planes(planes, self.out)
 
-    def run(self, rows: torch.Tensor,
-            clock: Tracer | None = None) -> torch.Tensor:
-        """(S, wcap) int32 rows on the context's device -> the flat uint8
-        raw frame; ``clock`` is marked after D1 (or D1L), the IDCT stage
-        and D3. On the lane route ``clock`` gets the span
-        ``gpujpeg.dec.lanes`` around D1L's enqueue (its count the lanes)
-        and the rounds are copied to host memory behind the kernels
-        (:meth:`lane_rounds`)."""
+    def run(self, x, clock: Tracer | None = None) -> torch.Tensor:
+        """:meth:`upload`'s result (a :class:`DeviceScan`, or (S, wcap)
+        int32 rows) on the context's device -> the flat uint8 raw frame;
+        from a :class:`DeviceScan` D0 builds the rows first. ``clock`` is
+        marked after D1 (or D0 + D1, or D1L), the IDCT stage and D3. On
+        the lane route ``clock`` gets the span ``gpujpeg.dec.lanes``
+        around D1L's enqueue (its count the lanes) and the rounds are
+        copied to host memory behind the kernels (:meth:`lane_rounds`)."""
+        rows = x
+        if isinstance(x, DeviceScan):
+            rows = destuff_rows(x.data, x.ranges, x.wcap)
         if self.lanes and clock is not None:
             clock.open("gpujpeg.dec.lanes")
             coeff = self.coefficients(rows)
@@ -618,8 +730,10 @@ def decode_prep(contexts: dict, device: torch.device, plan: CoderPlan, info,
                 scan_data, segments_by_scan, dc_by_comp, ac_by_comp,
                 out_image, tr: Tracer | None = None):
     """The host half of a device decode on ``device``, its context kept in
-    ``contexts``: (the decode context, the (S, wcap) int32 segment rows);
-    ``tr`` gets a span around each."""
+    ``contexts``: (the decode context, :meth:`DecContext.prep`'s host
+    half: the scans' bytes and ranges, or on the lane route the rows);
+    ``tr`` gets a span around each, ``gpujpeg.dec.rows`` with the bytes
+    that go up."""
     if tr is not None:
         tr.open("gpujpeg.dec.context")
     ctx = dec_context(contexts, plan, info, dc_by_comp, ac_by_comp,
@@ -627,10 +741,10 @@ def decode_prep(contexts: dict, device: torch.device, plan: CoderPlan, info,
     if tr is not None:
         tr.close()
         tr.open("gpujpeg.dec.rows")
-    rows = ctx.rows(scan_data, segments_by_scan)
+    host = ctx.prep(scan_data, segments_by_scan)
     if tr is not None:
-        tr.close(rows.nbytes)
-    return ctx, rows
+        tr.close(host.nbytes)
+    return ctx, host
 
 
 #: the decoder's stats that its tracer's marks time, in mark order
@@ -644,38 +758,43 @@ def decode_device(contexts: dict, device: torch.device, plan: CoderPlan,
     """Run the device decode on ``device``, its context kept in
     ``contexts``; returns (the flat uint8 raw frame in the output's pixel
     format on ``device``, ``(fn, args)`` such that ``fn(*args)`` replays
-    the kernels on the rows already on the device and returns the same
-    frame, the decoder stats it measured by name: ``bytes_memory_to``,
-    ``duration_memory_to`` and ``duration_in_gpu`` and, with ``tr`` (the
-    call's tracer with perf stats on, which gets the spans and marks),
+    the kernels (D0 included) on the bytes already on the device and
+    returns the same frame, the decoder stats it measured by name:
+    ``bytes_memory_to`` (the scans' bytes and ranges, or the lane route's
+    rows), ``duration_memory_to`` and ``duration_in_gpu`` and, with
+    ``tr`` (the call's tracer with perf stats on, which gets the spans,
+    marks and counters: after the wait ``gpujpeg.dec.card_rows``, the
+    segments D0 destuffed, or on the lane route ``gpujpeg.dec.rounds``),
     the stage durations of :data:`DEC_MARKED`)."""
-    ctx, rows = decode_prep(contexts, device, plan, info, scan_data,
+    ctx, host = decode_prep(contexts, device, plan, info, scan_data,
                             segments_by_scan, dc_by_comp, ac_by_comp,
                             out_image, tr)
     t0 = (tr.open("gpujpeg.dec.memory_to") if tr is not None
           else time.perf_counter_ns())
-    rows_dev = ctx.upload(rows)
+    x = ctx.upload(host)
     if tr is not None:
-        t1 = tr.close(rows.nbytes)
+        t1 = tr.close(host.nbytes)
         tr.open("gpujpeg.dec.launch")
         tr.mark()
     else:
         t1 = time.perf_counter_ns()
-    raw = ctx.run(rows_dev, tr)
+    raw = ctx.run(x, tr)
     if tr is not None:
         tr.close()
         tr.open("gpujpeg.dec.wait")
     if ctx.device.type == "cuda":
         torch.cuda.synchronize(ctx.device)
     t2 = tr.close() if tr is not None else time.perf_counter_ns()
-    timed = {"bytes_memory_to": int(rows.nbytes),
+    timed = {"bytes_memory_to": int(host.nbytes),
              "duration_memory_to": (t1 - t0) * 1e-6,
              "duration_in_gpu": (t2 - t1) * 1e-6}
     if tr is not None:
         timed.update(zip(DEC_MARKED, tr.durations()))
         if ctx.lanes:
             tr.count("gpujpeg.dec.rounds", ctx.lane_rounds())
-    return raw, (ctx.run, (rows_dev,)), timed
+        else:
+            tr.count("gpujpeg.dec.card_rows", x.ranges.shape[1])
+    return raw, (ctx.run, (x,)), timed
 
 
 def pinned_like(t: torch.Tensor, tr: Tracer | None = None) -> torch.Tensor:
@@ -724,16 +843,16 @@ class Launched(NamedTuple):
     replay: tuple                 # (fn, args): ``fn(*args)`` reruns its kernels
 
 
-def decode_launch(ctx: DecContext, rows: np.ndarray,
-                  staging: PinnedRing | None, to_host: bool) -> Launched:
-    """The device half of a batch decode, without a sync: the rows are
-    uploaded (through ``staging`` on the card), the kernels launched and,
-    with ``to_host``, the frame's copy back queued into
-    :func:`pinned_like`'s block, which is not reused while a caller holds
-    it. :func:`decode_collect` takes the result."""
-    rows_dev = ctx.upload(rows, staging)
-    raw = ctx.run(rows_dev)
-    replay = (ctx.run, (rows_dev,))
+def decode_launch(ctx: DecContext, host, staging: PinnedRing | None,
+                  to_host: bool) -> Launched:
+    """The device half of a batch decode, without a sync: the host half
+    of :func:`decode_prep` is uploaded (through ``staging`` on the card),
+    the kernels launched and, with ``to_host``, the frame's copy back
+    queued into :func:`pinned_like`'s block, which is not reused while a
+    caller holds it. :func:`decode_collect` takes the result."""
+    x = ctx.upload(host, staging)
+    raw = ctx.run(x)
+    replay = (ctx.run, (x,))
     if ctx.device.type != "cuda":
         return Launched(raw, None, replay)
     if to_host:

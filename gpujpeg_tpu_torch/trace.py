@@ -15,9 +15,15 @@ A span records its name, its start and end on ``time.perf_counter_ns()``
 for a root), the id of its call and, on the transfer spans, a byte count
 (the lanes launched on ``gpujpeg.dec.lanes``). A counter
 (:meth:`Tracer.count`) is a record of no duration whose byte count holds
-its value: ``gpujpeg.dec.rounds``, the rounds a lane decode took, and
+its value: ``gpujpeg.dec.rounds``, the rounds a lane decode took,
 ``gpujpeg.dec.tables_fresh``, the DHT tables a decode's parse derived
-rather than shared from an earlier parse (after the stream span).
+rather than shared from an earlier parse (after the stream span), and
+``gpujpeg.dec.card_rows``, the segments whose rows D0 built on the card
+(in the root, after the wait; none on the lane route, whose rows the
+host builds). On the lane route the span ``gpujpeg.dec.rows`` is the host's
+row build and its bytes the rows'; on every other plan it is the
+segments' ranges, and its bytes, as ``gpujpeg.dec.memory_to``'s, are
+those uploaded: the scans' and the ranges'.
 While ``torch.profiler`` records, each span also opens a
 ``torch.profiler.record_function`` range of its name, so that the spans
 lie on the profiler's host timeline, to which the card's events are
@@ -64,8 +70,8 @@ NAMES = (
     "gpujpeg.dec.stream",       # the stream's parse
     "gpujpeg.dec.plan",         # the plan, scans and tables of the stream
     "gpujpeg.dec.context",      # the decode context and its table keys
-    "gpujpeg.dec.rows",         # the destuffed segment rows (rows' bytes)
-    "gpujpeg.dec.memory_to",    # the rows to the device (rows' bytes)
+    "gpujpeg.dec.rows",         # the segments' ranges (bytes uploaded)
+    "gpujpeg.dec.memory_to",    # the scans and ranges up (bytes uploaded)
     "gpujpeg.dec.launch",       # the kernels' enqueue
     "gpujpeg.dec.wait",         # the host waits for the card
     "gpujpeg.dec.memory_from",  # the frame to host memory (frame's bytes)
@@ -73,6 +79,7 @@ NAMES = (
     "gpujpeg.dec.lanes",        # the lane route's enqueue (lanes launched)
     "gpujpeg.dec.rounds",       # counter: the lanes' rounds (no duration)
     "gpujpeg.dec.tables_fresh",  # counter: DHT tables the parse derived
+    "gpujpeg.dec.card_rows",    # counter: segments D0 destuffed on the card
 )
 _CODE = {name: i for i, name in enumerate(NAMES)}
 

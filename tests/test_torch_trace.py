@@ -19,7 +19,7 @@ from gpujpeg_tpu_torch import parallel as par
 from gpujpeg_tpu_torch import tables, trace
 from gpujpeg_tpu_torch.models.decoder import DecoderStats
 from gpujpeg_tpu_torch.models.encoder import EncoderStats
-from gpujpeg_tpu_torch.ops.decode import build_rows
+from gpujpeg_tpu_torch.ops.decode import scan_bytes
 from gpujpeg_tpu_torch.stream.reader import read_image
 
 H, W = 64, 96
@@ -27,11 +27,13 @@ ENC = ["gpujpeg.enc", "gpujpeg.enc.plan", "gpujpeg.enc.context",
        "gpujpeg.enc.upload", "gpujpeg.enc.launch", "gpujpeg.enc.wait",
        "gpujpeg.enc.memory_from", "gpujpeg.enc.stream"]
 FRESH = "gpujpeg.dec.tables_fresh"
+CARD = "gpujpeg.dec.card_rows"
 DEC = ["gpujpeg.dec", "gpujpeg.dec.stream", FRESH, "gpujpeg.dec.plan",
        "gpujpeg.dec.context", "gpujpeg.dec.rows", "gpujpeg.dec.memory_to",
-       "gpujpeg.dec.launch", "gpujpeg.dec.wait", "gpujpeg.dec.memory_from"]
-#: the decode's spans that open a profiler range: all but the counter
-DEC_RANGES = [n for n in DEC if n != FRESH]
+       "gpujpeg.dec.launch", "gpujpeg.dec.wait", CARD,
+       "gpujpeg.dec.memory_from"]
+#: the decode's spans that open a profiler range: all but the counters
+DEC_RANGES = [n for n in DEC if n not in (FRESH, CARD)]
 
 
 @pytest.fixture(autouse=True)
@@ -111,16 +113,20 @@ def test_decode_records_its_spans(sub, pf, to_device):
     _check_call(s, DEC[:-1] if to_device else DEC)
     nbytes = dict(zip(_names(s), s["bytes"].tolist()))
     job = dec._job(read_image(data))
-    rows = build_rows(job.plan, job.scan_data, job.segments_by_scan)
+    # the bytes uploaded: the scans' and the segments' int32 ranges
+    up = sum(sd.size for sd in job.scan_data) + 8 * job.plan.n_segments
     assert nbytes["gpujpeg.dec.rows"] == nbytes["gpujpeg.dec.memory_to"] \
-        == rows.nbytes == dec.stats.bytes_memory_to
+        == up == dec.stats.bytes_memory_to
+    assert up == scan_bytes(job.plan, job.scan_data,
+                            job.segments_by_scan).nbytes
     if not to_device:
         assert nbytes["gpujpeg.dec.memory_from"] == raw.nbytes == \
             port.types.image_calculate_size(W, H, pf)
-    # the counter's value: the stream's 4 tables, derived fresh
-    assert nbytes[FRESH] == 4
-    assert sum(nbytes.values()) == 2 * rows.nbytes + (
-        0 if to_device else raw.nbytes) + nbytes[FRESH]
+    # the counters' values: the stream's 4 tables, derived fresh, and
+    # every segment's row built on the device
+    assert nbytes[FRESH] == 4 and nbytes[CARD] == job.plan.n_segments
+    assert sum(nbytes.values()) == 2 * up + (
+        0 if to_device else raw.nbytes) + nbytes[FRESH] + nbytes[CARD]
 
 
 def test_one_call_id_a_call():
@@ -362,10 +368,10 @@ NAMES_BEFORE_LANES = tuple(ENC + DEC_RANGES) + ("gpujpeg.dec.pin",)
 
 def test_names_keep_their_indices():
     """Names are appended, never moved: the lane route's two follow, then
-    the parse's counter."""
+    the parse's counter, then D0's."""
     assert trace.NAMES[:len(NAMES_BEFORE_LANES)] == NAMES_BEFORE_LANES
     assert trace.NAMES[len(NAMES_BEFORE_LANES):] == (
-        "gpujpeg.dec.lanes", "gpujpeg.dec.rounds", FRESH)
+        "gpujpeg.dec.lanes", "gpujpeg.dec.rounds", FRESH, CARD)
 
 
 def _restartless(sub: int = 420) -> bytes:
@@ -417,10 +423,10 @@ def test_lane_route_records_lanes_and_rounds(monkeypatch, to_device):
         assert s["start_ns"][rnd] >= s["end_ns"][wait]
         assert (s["bytes"][lane], s["bytes"][rnd]) == seen[k]
         assert seen[k][1] >= 1
-    # the other spans as on every device-route call
+    # the other spans as on every device-route call, without D0's counter
     assert [n for n in got if n not in ("gpujpeg.dec.lanes",
                                         "gpujpeg.dec.rounds")] \
-        == (DEC[:-1] if to_device else DEC)
+        == [n for n in (DEC[:-1] if to_device else DEC) if n != CARD]
 
 
 def test_lane_route_records_nothing_without_perf_stats(monkeypatch):
