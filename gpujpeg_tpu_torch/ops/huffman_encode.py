@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ..plan import CoderPlan
+from ..trace import Tracer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,14 +80,17 @@ COMPACT_CHUNK_BYTES = 1 << 24
 
 
 def compact_segments(out: torch.Tensor, out_len: np.ndarray,
-                     cap_out: int) -> tuple[np.ndarray, np.ndarray]:
+                     cap_out: int, tr: Tracer | None = None
+                     ) -> tuple[np.ndarray, np.ndarray]:
     """Gather the used prefix of every segment row of ``out`` (S, cap_out)
     uint8 into one contiguous stream, on ``out``'s device, and copy it to
     the host, :data:`COMPACT_CHUNK_BYTES` at a time. ``out_len`` is
     already on the host (the one small sync of the encode, as the
     reference's output-size sync, gpujpeg_huffman_gpu_encoder.cu:1158).
-    Returns (bytes, starts) with ``starts`` the (S+1,) exclusive prefix of
-    ``out_len``."""
+    ``tr`` (the call's tracer) gets a span ``gpujpeg.enc.copy_back``
+    around each chunk's copy to the host (the wait for its gather
+    included), its bytes the chunk's. Returns (bytes, starts) with
+    ``starts`` the (S+1,) exclusive prefix of ``out_len``."""
     out_len = np.asarray(out_len, np.int64)
     starts = np.concatenate([[0], np.cumsum(out_len)]).astype(np.int64)
     flat = np.empty(int(starts[-1]), np.uint8)
@@ -107,6 +111,11 @@ def compact_segments(out: torch.Tensor, out_len: np.ndarray,
             seg *= cap_out
             seg += i
             del i
-            flat[lo:hi] = rows[seg].cpu().numpy()
+            chunk = rows[seg]
+            if tr is not None:
+                tr.open("gpujpeg.enc.copy_back")
+            flat[lo:hi] = chunk.cpu().numpy()
+            if tr is not None:
+                tr.close(hi - lo)
         s0 = s1
     return flat, starts

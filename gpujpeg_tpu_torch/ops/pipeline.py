@@ -377,11 +377,13 @@ class EncContext:
                            g.has_rst if has_rst is None else has_rst,
                            g.cap_out)
 
-    def compact(self, out: torch.Tensor, out_len_h: np.ndarray):
+    def compact(self, out: torch.Tensor, out_len_h: np.ndarray,
+                clock: Tracer | None = None):
         """E3's (S, cap_out) rows and their (S,) lengths in host memory ->
         a band of :func:`stream.writer.scan_bodies`: (the segments' bytes
-        back to back in host memory, ``out_len_h``)."""
-        flat, _ = compact_segments(out, out_len_h, self.geo.cap_out)
+        back to back in host memory, ``out_len_h``); ``clock`` gets the
+        copies' spans (:func:`compact_segments`)."""
+        flat, _ = compact_segments(out, out_len_h, self.geo.cap_out, clock)
         return flat, out_len_h
 
 
@@ -448,7 +450,7 @@ def encode_segments_device(contexts: dict, device: torch.device, raw,
     timed = {"duration_in_gpu": (t1 - t0) * 1e-6}
     if tr is not None:
         tr.open("gpujpeg.enc.memory_from")
-    bodies, sizes = scan_bodies(plan, [ctx.compact(out, out_len_h)])
+    bodies, sizes = scan_bodies(plan, [ctx.compact(out, out_len_h, tr)])
     if tr is not None:
         tr.mark()
         tr.close(sum(map(len, bodies)))

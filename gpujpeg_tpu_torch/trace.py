@@ -23,7 +23,9 @@ rather than shared from an earlier parse (after the stream span), and
 host builds). On the lane route the span ``gpujpeg.dec.rows`` is the host's
 row build and its bytes the rows'; on every other plan it is the
 segments' ranges, and its bytes, as ``gpujpeg.dec.memory_to``'s, are
-those uploaded: the scans' and the ranges'.
+those uploaded: the scans' and the ranges'. Inside the encode's
+``gpujpeg.enc.memory_from`` each chunk of the compacted stream copied to
+the host is a span ``gpujpeg.enc.copy_back``, its bytes the chunk's.
 While ``torch.profiler`` records, each span also opens a
 ``torch.profiler.record_function`` range of its name, so that the spans
 lie on the profiler's host timeline, to which the card's events are
@@ -80,6 +82,7 @@ NAMES = (
     "gpujpeg.dec.rounds",       # counter: the lanes' rounds (no duration)
     "gpujpeg.dec.tables_fresh",  # counter: DHT tables the parse derived
     "gpujpeg.dec.card_rows",    # counter: segments D0 destuffed on the card
+    "gpujpeg.enc.copy_back",    # a compacted chunk to the host (its bytes)
 )
 _CODE = {name: i for i, name in enumerate(NAMES)}
 

@@ -26,6 +26,11 @@ H, W = 64, 96
 ENC = ["gpujpeg.enc", "gpujpeg.enc.plan", "gpujpeg.enc.context",
        "gpujpeg.enc.upload", "gpujpeg.enc.launch", "gpujpeg.enc.wait",
        "gpujpeg.enc.memory_from", "gpujpeg.enc.stream"]
+#: inside ``gpujpeg.enc.memory_from``: a compacted chunk's copy to the host
+COPY = "gpujpeg.enc.copy_back"
+#: an encode call's spans in the order they open: the root's children,
+#: with one copy back inside the compaction (one chunk at this size)
+ENC_SPANS = ENC[:7] + [COPY] + ENC[7:]
 FRESH = "gpujpeg.dec.tables_fresh"
 CARD = "gpujpeg.dec.card_rows"
 DEC = ["gpujpeg.dec", "gpujpeg.dec.stream", FRESH, "gpujpeg.dec.plan",
@@ -65,16 +70,24 @@ def _names(s) -> list:
 def _check_call(s, names: list, base: int = 0) -> None:
     """``s``: the spans of one call, its root at index ``base`` of the
     buffer: the root first, each other span a child of it, inside it,
-    with its own call id shared by all."""
+    with its own call id shared by all; a copy back (:data:`COPY`) is a
+    child of the compaction span before it instead, inside that."""
     assert _names(s) == names
     assert s["parent"][0] == -1
-    assert (s["parent"][1:] == base).all()
+    copy = np.asarray(_names(s)) == COPY
+    kids = np.flatnonzero(~copy)[1:]
+    assert (s["parent"][kids] == base).all()
+    for i in np.flatnonzero(copy):
+        p = s["parent"][i] - base
+        assert _names(s[p:p + 1]) == ["gpujpeg.enc.memory_from"]
+        assert s["start_ns"][p] <= s["start_ns"][i] <= s["end_ns"][i] \
+            <= s["end_ns"][p]
     assert (s["call"] == s["call"][0]).all()
     assert (s["end_ns"] >= s["start_ns"]).all() and (s["start_ns"] > 0).all()
     assert (s["start_ns"][1:] >= s["start_ns"][0]).all()
     assert (s["end_ns"][1:] <= s["end_ns"][0]).all()
     # the children one after another
-    assert (s["start_ns"][2:] >= s["end_ns"][1:-1]).all()
+    assert (s["start_ns"][kids[1:]] >= s["end_ns"][kids[:-1]]).all()
 
 
 @pytest.mark.parametrize("sub,as_tensor", [(444, False), (420, False),
@@ -87,14 +100,14 @@ def test_encode_records_its_spans(sub, as_tensor):
     enc = port.Encoder(backend="torch", device="cpu")
     data = enc.encode(raw, _params(sub, perf_stats=True), _image())
     s = trace.spans()
-    _check_call(s, ENC)
+    _check_call(s, ENC_SPANS)
     assert trace.dropped() == 0
     nbytes = dict(zip(_names(s), s["bytes"].tolist()))
     assert nbytes["gpujpeg.enc.upload"] == (0 if as_tensor else img.nbytes)
-    assert nbytes["gpujpeg.enc.memory_from"] == sum(
+    assert nbytes["gpujpeg.enc.memory_from"] == nbytes[COPY] == sum(
         sc.data.size for sc in read_image(data).scans)
     assert sum(nbytes.values()) == nbytes["gpujpeg.enc.upload"] + \
-        nbytes["gpujpeg.enc.memory_from"]
+        2 * nbytes["gpujpeg.enc.memory_from"]
     assert data == port.Encoder(backend="torch", device="cpu").encode(
         raw, _params(sub), _image())
 
@@ -141,7 +154,7 @@ def test_one_call_id_a_call():
     assert _names(s[roots]) == ["gpujpeg.enc", "gpujpeg.dec"] * 2
     assert len(set(s["call"][roots].tolist())) == 4
     for a, b in zip(roots, list(roots[1:]) + [len(s)]):
-        _check_call(s[a:b], ENC if _names(s[a:a + 1]) == ["gpujpeg.enc"]
+        _check_call(s[a:b], ENC_SPANS if _names(s[a:a + 1]) == ["gpujpeg.enc"]
                     else DEC, a)
 
 
@@ -185,8 +198,8 @@ def test_overflow_counts_dropped_spans(monkeypatch):
     enc = port.Encoder(backend="torch", device="cpu")
     enc.encode(make_test_rgb(H, W).reshape(-1), _params(perf_stats=True),
                _image())
-    assert trace.dropped() == len(ENC) - 5
-    assert _names(trace.spans()) == ENC[:5]
+    assert trace.dropped() == len(ENC_SPANS) - 5
+    assert _names(trace.spans()) == ENC_SPANS[:5]
     assert (trace.spans()["end_ns"] > 0).all()
     trace.clear()
     assert trace.dropped() == 0 and trace.spans().size == 0
@@ -224,18 +237,19 @@ def test_spans_are_profiler_user_annotations(monkeypatch):
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         enc.encode(img, _params(perf_stats=True), _image())
         dec.decode(data)
-    assert entered == ENC + DEC_RANGES
+    assert entered == ENC_SPANS + DEC_RANGES
     ann = [(e.start_ns(), e.end_ns(), e.name())
            for e in prof.profiler.kineto_results.events()
            if e.is_user_annotation() and e.device_type() == DeviceType.CPU]
-    assert sorted(n for *_, n in ann) == sorted(ENC + DEC_RANGES)
+    assert sorted(n for *_, n in ann) == sorted(ENC_SPANS + DEC_RANGES)
     by_name = {n: (a, b) for a, b, n in ann}
-    for root, names in (("gpujpeg.enc", ENC), ("gpujpeg.dec", DEC_RANGES)):
+    for root, names in (("gpujpeg.enc", ENC_SPANS),
+                        ("gpujpeg.dec", DEC_RANGES)):
         r0, r1 = by_name[root]
         for n in names[1:]:
             assert r0 <= by_name[n][0] <= by_name[n][1] <= r1
     # the buffer kept the same spans on the process's own clock
-    assert _names(trace.spans()) == ENC + DEC
+    assert _names(trace.spans()) == ENC_SPANS + DEC
 
 
 def test_stats_keys_unchanged_and_taken_from_the_spans():
@@ -358,7 +372,8 @@ def test_perf_trace_tool_on_the_cpu(capsys):
     assert [ln.split(":")[0] for ln in lines] == [
         f"perf_trace hd {p} {s}" for p in ("encode", "decode")
         for s in perf_trace.STATES]
-    assert "8.0 spans a call" in lines[1] and "0.0 spans" in lines[0]
+    assert f"{len(ENC_SPANS)}.0 spans a call" in lines[1] \
+        and "0.0 spans" in lines[0]
     assert trace.spans().size == 0
 
 
@@ -368,10 +383,10 @@ NAMES_BEFORE_LANES = tuple(ENC + DEC_RANGES) + ("gpujpeg.dec.pin",)
 
 def test_names_keep_their_indices():
     """Names are appended, never moved: the lane route's two follow, then
-    the parse's counter, then D0's."""
+    the parse's counter, D0's, then the encode's copy back."""
     assert trace.NAMES[:len(NAMES_BEFORE_LANES)] == NAMES_BEFORE_LANES
     assert trace.NAMES[len(NAMES_BEFORE_LANES):] == (
-        "gpujpeg.dec.lanes", "gpujpeg.dec.rounds", FRESH, CARD)
+        "gpujpeg.dec.lanes", "gpujpeg.dec.rounds", FRESH, CARD, COPY)
 
 
 def _restartless(sub: int = 420) -> bytes:
